@@ -1,0 +1,37 @@
+"""Import hygiene: the port never imports JAX or the JAX package.
+
+The machine with the card has no JAX, so `transferable3d_torch` and every
+one of its submodules must import in a fresh interpreter without pulling
+in `jax*`, `flax*`, `optax*`, `orbax*` or `transferable3d_tpu*`, and
+without building a kernel.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import transferable3d_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from transferable3d_torch.ops import _build
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "orbax", "transferable3d_tpu"))
+print(len(names), _build._lib is None, bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    count, not_built, bad = res.stdout.split(" ", 2)
+    assert int(count) >= 15, res.stdout
+    assert not_built == "True", "importing must not build the kernels"
+    assert bad.strip() == "[]", bad
