@@ -12,7 +12,7 @@ chip_smoke.py runs the same comparisons at the full serving shapes.
 import pytest
 import torch
 
-from transferable3d_torch.ops import _build, fused_sa, sampling
+from transferable3d_torch.ops import _build, fused_sa, grouping, sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +88,75 @@ def test_sa_infer_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError):
         fused_sa.sa_infer(xyz[:, :8].contiguous(), xyz, pf, qc, 0.4, 16,
                           packs, ws, bs)
+
+
+# The 8 grouped SA scales of a v2 train step (N, S, radius, K, C = F1):
+# seg-SA1 x3, seg-SA2 x3, box-SA1, box-SA2.
+SLICE_SCALES = [(1024, 128, 0.2, 32, 32), (1024, 128, 0.4, 64, 64),
+                (1024, 128, 0.8, 128, 64), (128, 32, 0.4, 64, 64),
+                (128, 32, 0.8, 64, 128), (128, 32, 1.6, 128, 128),
+                (512, 128, 0.2, 64, 64), (128, 32, 0.4, 64, 128)]
+
+
+def _bf16_ulp(x):
+    """One bf16 unit in the last place of each value of x (float32)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+
+
+def _extract_inputs(n, s, c, seed, dev, b=4):
+    g = torch.Generator().manual_seed(seed)
+    xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
+    cent = xyz[:, :s].clone()
+    cent[:, ::7] += 100.0  # empty balls
+    pay = torch.randn(b, n, c, generator=g).to(dev).bfloat16()
+    return g, cent, xyz, pay
+
+
+@pytest.mark.parametrize("n,s,r,k,c", SLICE_SCALES)
+def test_extract_kernels_equal_plain(n, s, r, k, c):
+    _need_cuda()
+    dev = torch.device("cuda")
+    g, cent, xyz, pay = _extract_inputs(n, s, c, n + s + k + c, dev)
+    before = dict(_build.LAUNCHES)
+    pay.requires_grad_(True)
+    got, cnt = grouping.grouped_payload(cent, xyz, pay, r, k)
+    dg = torch.randn(got.shape, generator=g).to(dev).bfloat16()
+    got.backward(dg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["extract_fwd"] == before["extract_fwd"] + 1
+    assert _build.LAUNCHES["extract_bwd"] == before["extract_bwd"] + 1
+    ref, cref = grouping.extract_fwd_plain(cent, xyz, pay.detach(), r, k)
+    assert torch.equal(cnt, cref) and (cref == 0).any()
+    assert torch.equal(got, ref)
+    want = grouping.extract_bwd_plain(cent, xyz, dg, r, k, n).float()
+    have = pay.grad.float()
+    scale = grouping.extract_bwd_plain(cent, xyz, dg.abs(), r, k, n,
+                                       torch.float32)
+    assert (have == want).float().mean() >= 0.999
+    assert bool(((have - want).abs() <= _bf16_ulp(scale)).all())
+    dgi = torch.randint(-4, 5, got.shape, generator=g).to(dev).bfloat16()
+    assert torch.equal(grouping.extract_bwd_cuda(cent, xyz, dgi, r, k),
+                       grouping.extract_bwd_plain(cent, xyz, dgi, r, k, n))
+
+
+def test_extract_kernels_refuse_bad_inputs():
+    _need_cuda()
+    dev = torch.device("cuda")
+    _, cent, xyz, pay = _extract_inputs(64, 8, 16, 0, dev, b=2)
+    dg = torch.zeros(2, 8, 16, 16, device=dev, dtype=torch.bfloat16)
+    bad_fwd = [
+        (cent.cpu(), xyz.cpu(), pay.cpu()),             # wrong device
+        (cent, xyz, pay.float()),                       # wrong dtype
+        (cent, xyz[:, :32].contiguous(), pay),          # N mismatch
+        (cent, xyz, pay.transpose(0, 1).contiguous().transpose(0, 1)),
+    ]
+    for a in bad_fwd:
+        with pytest.raises(ValueError):
+            grouping.extract_fwd_cuda(*a, 0.4, 16)
+    with pytest.raises(ValueError):
+        grouping.extract_fwd_cuda(cent, xyz, pay, 0.4, 5000)  # K too big
+    bad_bwd = [dg.float(), dg[:, :, :8], dg.cpu(),
+               dg.transpose(2, 3).contiguous().transpose(2, 3)]
+    for d in bad_bwd:
+        with pytest.raises(ValueError):
+            grouping.extract_bwd_cuda(cent, xyz, d, 0.4, 16)

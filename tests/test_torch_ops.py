@@ -175,6 +175,8 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()
     assert not (tmp_path / "build").exists()
-    _, digest = _build._sources()
+    srcs, digest = _build._sources()
+    assert {p.name for p in srcs} >= {"fps.cu", "sa_infer.cu",
+                                      "ball_extract.cu"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
     assert _build._sources()[1] != digest  # flags are part of the key

@@ -1,10 +1,12 @@
 """Heading / size bin parameterization + dataset class constants.
 
-JAX-free copy of the parts of `transferable3d_tpu/core/bins.py` the port
-needs: the constants, `BinConfig` and the decoders `class_to_angle` /
-`class_to_size` (bins.py:193-198, :230-233) on torch tensors. The JAX
-module imports `jax.numpy` at import time, so the port cannot import it;
-tests/test_torch_core.py holds this copy equal to it.
+JAX-free copy of `transferable3d_tpu/core/bins.py`: the constants,
+`BinConfig`, the numpy codecs (`angle_to_class_np`, `class_to_angle_np`,
+`size_to_class_np`, `class_to_size_np`, bins.py:162-222) and the torch
+codecs `angle_to_class`, `class_to_angle`, `size_to_class`,
+`class_to_size` (bins.py:183-233). The JAX module imports `jax.numpy` at
+import time, so the port cannot import it; tests/test_torch_layers.py and
+tests/test_torch_geometry.py hold this copy equal to it.
 """
 
 from __future__ import annotations
@@ -95,6 +97,60 @@ class BinConfig:
 
 SUNRGBD = BinConfig.sunrgbd()
 KITTI = BinConfig.kitti()
+
+
+def angle_to_class_np(angle: np.ndarray, num_bin: int = NUM_HEADING_BIN):
+    """Continuous heading -> (bin index, residual). Host numpy version."""
+    angle = np.mod(angle, 2 * np.pi)
+    w = 2 * np.pi / num_bin
+    shifted = np.mod(angle + w / 2.0, 2 * np.pi)
+    cls = np.floor(shifted / w).astype(np.int32)
+    residual = shifted - (cls * w + w / 2.0)
+    return cls, residual.astype(np.float32)
+
+
+def class_to_angle_np(cls: np.ndarray, residual: np.ndarray,
+                      num_bin: int = NUM_HEADING_BIN,
+                      limit_period: bool = True) -> np.ndarray:
+    w = 2 * np.pi / num_bin
+    angle = cls * w + residual
+    if limit_period:
+        angle = np.mod(angle, 2 * np.pi)
+        angle = np.where(angle > np.pi, angle - 2 * np.pi, angle)
+    return angle.astype(np.float32)
+
+
+def size_to_class_np(size: np.ndarray, class_idx: np.ndarray,
+                     cfg: BinConfig):
+    """Size cluster = semantic class: size [..., 3] (l, w, h) and
+    class_idx [...] int -> (cluster, residual)."""
+    means = cfg.mean_size_array()
+    cluster = class_idx.astype(np.int32)
+    residual = size - means[cluster]
+    return cluster, residual.astype(np.float32)
+
+
+def class_to_size_np(cluster: np.ndarray, residual: np.ndarray,
+                     cfg: BinConfig) -> np.ndarray:
+    means = cfg.mean_size_array()
+    return (means[cluster] + residual).astype(np.float32)
+
+
+def angle_to_class(angle: torch.Tensor, num_bin: int = NUM_HEADING_BIN):
+    """Heading -> (bin index int32, residual)."""
+    angle = torch.remainder(angle, 2 * math.pi)
+    w = 2 * math.pi / num_bin
+    shifted = torch.remainder(angle + w / 2.0, 2 * math.pi)
+    cls = torch.floor(shifted / w).to(torch.int32)
+    residual = shifted - (cls.to(angle.dtype) * w + w / 2.0)
+    return cls, residual
+
+
+def size_to_class(size: torch.Tensor, class_idx: torch.Tensor,
+                  cfg: BinConfig):
+    means = torch.as_tensor(cfg.mean_size_array(), device=size.device)
+    cluster = class_idx.to(torch.int32)
+    return cluster, size - means[cluster.long()]
 
 
 def class_to_angle(cls: torch.Tensor, residual: torch.Tensor,

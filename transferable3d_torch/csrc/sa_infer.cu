@@ -11,7 +11,8 @@
 //   select = the in-radius points in index order (ranks 1..count); slot
 //            k takes rank (k mod eff) + 1 with eff = clip(count, 1, K);
 //            an empty ball takes the nearest point (lowest index on
-//            ties);
+//            ties); the d2 and selection code is ball_select.cuh, shared
+//            with K3 and K4;
 //   z1     = bf16(f32(pf[sel]) - f32(qc[s]));
 //   h_d    = max(bf16(z_d * a_d + c_d), 0);
 //   z_d+1  = bf16(sum_j h_d[j] * bf16(W_d)[j, o] + b_d[o])   (f32 sums);
@@ -35,13 +36,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ball_select.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDepth = 6;
 constexpr int kRowTile = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct ChainDims {
   int depth;
@@ -83,74 +85,15 @@ sa_infer_kernel(const float* __restrict__ cent, const float* __restrict__ xyz,
   const int s = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const size_t cs = (size_t)b * S + s;
   const float cx = cent[cs * 3 + 0];
   const float cy = cent[cs * 3 + 1];
   const float cz = cent[cs * 3 + 2];
   const float* pts = xyz + (size_t)b * N * 3;
 
-  // --- ball query: in-radius ranks by a ballot/popc block scan --------
-  int total = 0;              // in-radius points so far (all threads)
-  float near_d = INFINITY;    // this thread's nearest point
-  int near_i = N;
-  for (int base = 0; base < N; base += kThreads) {
-    const int p = base + tid;
-    bool in = false;
-    if (p < N) {
-      const float dx = __fsub_rn(cx, pts[3 * p + 0]);
-      const float dy = __fsub_rn(cy, pts[3 * p + 1]);
-      const float dz = __fsub_rn(cz, pts[3 * p + 2]);
-      float d = __fmul_rn(dx, dx);
-      d = __fadd_rn(d, __fmul_rn(dy, dy));
-      d = __fadd_rn(d, __fmul_rn(dz, dz));
-      in = d <= r2;
-      if (d < near_d) {  // p rises within a thread: lowest index stays
-        near_d = d;
-        near_i = p;
-      }
-    }
-    const unsigned m = __ballot_sync(kFull, in);
-    if (lane == 0) wcnt[warp] = __popc(m);
-    __syncthreads();
-    int off = total, tile = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) off += wcnt[w];
-      tile += wcnt[w];
-    }
-    if (in) {
-      const int r = off + __popc(m & ((1u << lane) - 1u));
-      if (r < K) sel[r] = p;
-    }
-    total += tile;
-    __syncthreads();
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float od = __shfl_down_sync(kFull, near_d, o);
-    const int oi = __shfl_down_sync(kFull, near_i, o);
-    if (od < near_d || (od == near_d && oi < near_i)) {
-      near_d = od;
-      near_i = oi;
-    }
-  }
-  if (lane == 0) {
-    red_d[warp] = near_d;
-    red_i[warp] = near_i;
-  }
-  __syncthreads();
-  if (tid == 0 && total == 0) {
-    float bd = red_d[0];
-    int bi = red_i[0];
-    for (int w = 1; w < kWarps; ++w) {
-      if (red_d[w] < bd || (red_d[w] == bd && red_i[w] < bi)) {
-        bd = red_d[w];
-        bi = red_i[w];
-      }
-    }
-    sel[0] = bi;
-  }
-  __syncthreads();
+  // --- ball query (ball_select.cuh): sel[] holds the eff members ---
+  const int total = t3d::ball_select<kThreads>(pts, N, cx, cy, cz, r2, K,
+                                              sel, wcnt, red_d, red_i);
   const int rows = total == 0 ? 1 : min(total, K);
 
   // --- z1 and layer 0: h0 = relu(bf16(bf16(pf - qc) * a0 + c0)) --------

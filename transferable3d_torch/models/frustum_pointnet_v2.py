@@ -11,7 +11,8 @@ Port of `transferable3d_tpu/models/frustum_pointnet_v2.py`:
 
 Input widths are explicit here (flax infers them at init): `in_channels`
 is the point width C (xyz + extras) and the class count comes from the
-bin config.
+bin config. The seg head's dropout (rate 0.5, train mode only) draws its
+mask from the `generator` passed to `forward` (models/layers.dropout).
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.models import model_util
 from transferable3d_torch.models.frustum_pointnet_v1 import TNet
+from transferable3d_torch.models import layers
 from transferable3d_torch.models.layers import Dense, MLPHead, PointMLP
 from transferable3d_torch.models.pointnet2 import (FeaturePropagation,
                                                   SetAbstraction,
@@ -58,7 +59,8 @@ class InstanceSegNetV2(nn.Module):
         self.seg_out = Dense(128, 2, dtype=torch.float32, device=device,
                              generator=generator)
 
-    def forward(self, points, one_hot, bn_momentum: float = 0.9):
+    def forward(self, points, one_hot, bn_momentum: float = 0.9,
+                generator: Optional[torch.Generator] = None):
         xyz = points[..., :3].contiguous()
         feats = points[..., 3:] if points.shape[-1] > 3 else None
         xyz1, f1 = self.sa1(xyz, feats, bn_momentum)
@@ -70,7 +72,11 @@ class InstanceSegNetV2(nn.Module):
         skip = points if feats is not None else xyz
         u0 = self.fp3(xyz, xyz1, skip.to(self.dtype), u1, bn_momentum)
         x = self.head_mlp(u0, bn_momentum)
-        x = F.dropout(x, 0.5, self.training)
+        if self.training:
+            if generator is None:
+                raise ValueError("train-mode dropout draws its mask from an "
+                                 "explicit torch.Generator; pass one")
+            x = layers.dropout(x, 0.5, generator)
         return self.seg_out(x)
 
 
@@ -114,9 +120,12 @@ class FrustumPointNetV2(nn.Module):
         self.tnet = TNet(cfg.num_classes, **kw)
         self.box_net = BoxEstimationNetV2(cfg, **kw)
 
-    def forward(self, points, one_hot, bn_momentum: float = 0.9
+    def forward(self, points, one_hot, bn_momentum: float = 0.9,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        seg_logits = self.seg_net(points, one_hot, bn_momentum)
+        """`generator` draws the seg head's dropout mask in train mode
+        (required there, as flax requires a dropout rng)."""
+        seg_logits = self.seg_net(points, one_hot, bn_momentum, generator)
         masked = model_util.point_cloud_masking(points, seg_logits,
                                                 self.num_object_point)
         delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)

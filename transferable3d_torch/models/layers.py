@@ -10,6 +10,11 @@ bfloat16), applied where flax applies it:
 * `ScheduledBatchNorm` normalizes in float32 and casts the result to
   `dtype`.
 
+`dropout` is flax `nn.Dropout` in train mode. Its keep mask comes from
+an explicit `torch.Generator`, never from torch's global generator,
+through the module-level `dropout_keep_mask`, which a test can replace
+to feed the JAX step's own mask.
+
 Parameter and buffer names are the flax leaf names (`weight` stands for
 the flax `kernel`, transposed to [out, in]) so `utils/bridge.py` maps a
 flax variable tree onto `state_dict()` one to one.
@@ -141,6 +146,23 @@ class MLPHead(nn.Module):
             x = getattr(self, f"fc_{i}")(x)
             x = torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
         return self.out(x)
+
+
+def dropout_keep_mask(shape, rate: float, generator: torch.Generator
+                      ) -> torch.Tensor:
+    """Bool keep mask of `shape`, each entry kept with probability
+    1 - rate, drawn on the generator's device (a CPU generator gives the
+    same mask whatever device the activations are on)."""
+    return (torch.rand(shape, generator=generator, device=generator.device)
+            < 1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
+            ) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` in train mode: where(keep, x / (1 - rate),
+    0); at rate 0.5 the scaling by 2 is exact in bf16."""
+    keep = dropout_keep_mask(tuple(x.shape), rate, generator).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def masked_max_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None

@@ -10,14 +10,18 @@ module:
 so the grouping gathers layer-1 preactivations `pf` and a per-centroid
 correction `qc`. `GroupedPointMLP` then takes the fused branch
 (ops/fused_sa: one CUDA kernel per SA scale on the card) when its dtype
-is bfloat16, and the plain grouped branch otherwise (pointnet2.py:146-162;
-the JAX package additionally requires a TPU, the port's fused branch
-runs on any device). Parameter names match the flax tree (`dense_i`,
-`bn_i`, `mlp`, `mlp_i`).
+is bfloat16 and `T3D_FUSED_SA` is "1" (the default), read at call time;
+otherwise the unfused branch: `grouped_payload` (kernels K3/K4 for bf16
+on the card), then BN, ReLU and Dense per layer and the max over K
+(pointnet2.py:146-162; the JAX package additionally requires a TPU for
+the fused branch, the port's runs on any device). The fused branch has
+no training kernels yet, so bf16 training needs `T3D_FUSED_SA=0`.
+Parameter names match the flax tree (`dense_i`, `bn_i`, `mlp`, `mlp_i`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -67,7 +71,8 @@ class GroupedPointMLP(nn.Module):
              torch.zeros(b, s, self.cin - 3, dtype=self.dtype,
                          device=new_xyz.device)], dim=-1)
         qc = dense0(cent_pad) - dense0(torch.zeros_like(cent_pad))
-        if self.dtype == torch.bfloat16:
+        if (self.dtype == torch.bfloat16
+                and os.environ.get("T3D_FUSED_SA", "1") == "1"):
             return self._fused(new_xyz, xyz, pf, qc)
         grouped_pf, _ = grouped_payload(new_xyz, xyz, pf, self.radius,
                                         self.nsample)  # [B, S, K, F1]

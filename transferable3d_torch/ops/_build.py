@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles every source under `transferable3d_torch/csrc/` for
-Hopper (`sm_90a`) into one shared library with a plain C interface,
-which is loaded with ctypes. The library lands in
-`transferable3d_torch/_build/` (git-ignored) under a name that carries a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused within a checkout. Nothing here runs at import
-time: the CPU tests import every module on machines without `nvcc`.
+`nvcc` compiles each source under `transferable3d_torch/csrc/` for
+Hopper (`sm_90a`) into an object file, one process per source, all
+started together; one more `nvcc` links the objects into a single shared
+library with a plain C interface, which is loaded with ctypes. The
+library lands in `transferable3d_torch/_build/` (git-ignored) under a
+name that carries a hash of the sources, the shared headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused
+within a checkout. Nothing here runs at import time: the CPU tests
+import every module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
 synchronise, and returns `cudaGetLastError()`; `check()` raises on a
@@ -29,10 +31,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo", "-gencode", "arch=compute_90a,code=sm_90a"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              *ARCH]
 
-LAUNCHES = {"fps": 0, "sa_infer": 0}
+LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +49,10 @@ _SIGNATURES = {
     # int array), r2, stream
     "t3d_sa_infer": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
                      _P],
+    # cent, xyz, payload, out, count, B, S, N, K, C, r2, stream
+    "t3d_extract_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # cent, xyz, dg, f32 workspace, dpay, B, S, N, K, C, r2, stream
+    "t3d_extract_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -78,6 +85,22 @@ def _sources():
     return srcs, h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands as parallel processes; raise with the output of
+    every one that failed."""
+    procs = [(cmd, subprocess.Popen(
+        [str(a) for a in cmd], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for cmd in cmds]
+    errors = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append("nvcc failed (" + " ".join(map(str, cmd))
+                          + "):\n" + log)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib, build_seconds
@@ -89,16 +112,15 @@ def library() -> ctypes.CDLL:
         if not so.exists():
             t0 = time.perf_counter()
             nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            work = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
+            work.mkdir(parents=True, exist_ok=True)
+            objs = [work / f"{src.stem}.o" for src in srcs]
+            _run_all([[nvcc, *NVCC_FLAGS, "-I", SRC_DIR, "-c", "-o", obj,
+                       src] for src, obj in zip(srcs, objs)])
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-                   *map(str, srcs)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed (" + " ".join(cmd) + "):\n"
-                    + res.stdout + res.stderr)
+            _run_all([[nvcc, "-shared", *ARCH, "-o", tmp, *objs]])
             os.replace(tmp, so)
+            shutil.rmtree(work)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():

@@ -26,8 +26,8 @@ from typing import Sequence, Tuple
 import torch
 
 from transferable3d_torch.ops import _build
-from transferable3d_torch.ops.grouping import (flat_row_gather, radius_sq,
-                                               select_slots)
+from transferable3d_torch.ops.grouping import (direct_sqdist, flat_row_gather,
+                                               radius_sq, select_slots)
 
 # csrc/sa_infer.cu: threads per block, max chain depth, and the shared
 # memory one block may use on an H100 (227 KB).
@@ -52,10 +52,7 @@ def sa_infer_plain(cent, xyz, pf, qc, radius: float, nsample: int,
                    bs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch twin of K2, with the rounding sites of the JAX
     `_infer_kernel` (`_rank_rows`, `_chain_all`, fused_sa.py:118-179)."""
-    d2 = None
-    for i in range(3):
-        diff = cent[:, :, None, i] - xyz[:, None, :, i]  # [B, S, N]
-        d2 = diff * diff if d2 is None else d2 + diff * diff
+    d2 = direct_sqdist(cent, xyz)
     idx, _ = select_slots(d2 <= radius_sq(radius), d2, nsample)
     g = flat_row_gather(pf, idx)                          # [B, S, K, F0]
     z = (g.float() - qc.float()[:, :, None, :]).to(torch.bfloat16)
@@ -171,9 +168,9 @@ def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
     """
     if train:
         raise NotImplementedError(
-            "fused_grouped_chain(train=True): the training kernels "
+            "fused_grouped_chain(train=True): the fused training kernels "
             "(fused_sa K5-K9) are not ported yet (ROADMAP queue B, B3 "
-            "steps 1-5)")
+            "steps 1-5); train with T3D_FUSED_SA=0, the unfused path")
     depth = len(gammas)
     if depth < 2:
         raise ValueError("fused_grouped_chain requires chain depth >= 2")

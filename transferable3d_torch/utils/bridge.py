@@ -1,4 +1,4 @@
-"""flax variables -> the port's `state_dict`.
+"""flax variables <-> the port's `state_dict`.
 
 The flax tree of the JAX package (`params` + `batch_stats`, nested
 mappings of arrays, e.g. after `jax.device_get`) maps onto the port's
@@ -12,6 +12,11 @@ The path is the flax module path joined with dots (flax and port
 modules share names: `seg_net.sa1.mlp_0.dense_0.weight`). Loading
 raises unless every leaf on both sides is used exactly once with the
 same shape.
+
+The inverse map (`state_dict_to_flax`, `grads_to_flax`) gives a module's
+parameters, running statistics or `.grad`s back as flax-shaped nested
+dicts of numpy arrays, so parameter and gradient trees compare leaf by
+leaf under flax paths.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
+_FLAX_PARAM = {v: k for k, v in _PARAM_LEAVES.items()}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -73,3 +79,37 @@ def load_flax_variables(model: torch.nn.Module, params: Mapping,
     model.load_state_dict(
         {k: v.to(device=own[k].device, dtype=own[k].dtype)
          for k, v in sd.items()}, strict=True)
+
+
+def _flax_tree(named, leaf_names: Mapping) -> Dict:
+    """(dotted port name, tensor) pairs -> nested dict under flax paths,
+    Dense weights transposed back to kernels [in, out]."""
+    tree: Dict = {}
+    for key, tensor in named:
+        *path, leaf = key.split(".")
+        if leaf not in leaf_names:
+            raise ValueError(f"no flax leaf for port entry {key}")
+        arr = tensor.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr = arr.T
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf_names[leaf]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def state_dict_to_flax(model: torch.nn.Module) -> Tuple[Dict, Dict]:
+    """The module's (params, batch_stats) as flax-shaped numpy trees."""
+    params = _flax_tree(model.named_parameters(), _FLAX_PARAM)
+    stats = _flax_tree(model.named_buffers(),
+                       {v: k for k, v in _STAT_LEAVES.items()})
+    return params, stats
+
+
+def grads_to_flax(model: torch.nn.Module) -> Dict:
+    """The parameters' `.grad` as a flax-shaped numpy tree (a parameter
+    without a gradient contributes zeros)."""
+    return _flax_tree(
+        ((k, torch.zeros_like(p) if p.grad is None else p.grad)
+         for k, p in model.named_parameters()), _FLAX_PARAM)
