@@ -7,9 +7,10 @@ Drives `transferable3d_torch` (no JAX anywhere) through F-PointNet v2 at
 the width of the JAX package's bench cells: serving as `v2_infer`
 (`get_model("frustum_pointnets_v2", SUNRGBD, dtype=bfloat16)` on cuda:0,
 B=128 frustums of N=1024 points with C=4 channels, 512 object points
-after masking) and one training step as `v2_train` on the unfused
-set-abstraction path (T3D_FUSED_SA=0). Weights are random from a seeded
-torch.Generator; the inputs are seeded synthetic frustums.
+after masking) and training as `v2_train`, on the unfused
+set-abstraction path (T3D_FUSED_SA=0) and on the fused one (the default).
+Weights are random from a seeded torch.Generator; the inputs are seeded
+synthetic frustums.
 
 Serving phases, one line each, under torch.no_grad():
   1. card name and `nvidia-smi` name + power limit;
@@ -61,13 +62,35 @@ Training phases (T3D_FUSED_SA=0 set for them and restored after):
 then times with CUDA events beside the card's name and power limit: the
 train step at B=128 (ms and frustums/s), K3 and K4 vs their plain twins
 at each of the 8 shapes and per step, and the peak device memory.
-Then a JSON line with the kernels, and last the JSON ok line. Any failed
-check exits non-zero and prints no ok line.
+Fused training phases (T3D_FUSED_SA unset, from the same initial model):
+ 12. one `make_train_step` call with the counters zeroed just before it:
+     4 FPS and 8 launches of each of K5-K9 are required, none of K2, K3
+     or K4, and the arguments of every K5-K9 launch are captured; every
+     loss term, metric and gradient finite;
+ 13. each of K5-K9 vs its plain twin on the captured arguments, and the
+     chain again with every other centroid moved 100 m away, at the
+     limits `FusedChecks` states; each kernel's sums bit-identical when
+     it runs twice; the grouped MLPs' BN running statistics bit-identical
+     after one step from two copies of the model;
+ 14. phase 10's bf16 check with the fused path on the card (kernels) and
+     on the CPU (plain twins), at the limits of `FUSED_COS`, with two
+     witnesses and three controls; and, as a reading, the card's fused
+     step against its unfused one;
+ 15. 30 fused train steps: losses finite, the mean of the last 5 below
+     the first; then the fused step's time and peak memory beside the
+     unfused step's from this run, and K5-K9 vs their twins at each of
+     the 8 shapes and per step.
+Every kernel's time stands beside its bound: the least time the card
+could take for the same bytes (each input read once, each output written
+once) and operations at the published peaks. Then a JSON line with the
+nine kernels, and last the JSON ok line. Any failed check exits non-zero
+and prints no ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -99,6 +122,39 @@ def _fail(msg: str) -> None:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         _fail(msg)
+
+
+def _expect_launches(launches: dict, want: dict) -> None:
+    """The kernels named in `want` launched that often, every other kernel
+    of the port not at all."""
+    full = {k: want.get(k, 0) for k in launches}
+    _check(launches == full and set(want) <= set(launches),
+           f"expected launches {full}, got {launches}")
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def _bound(nbytes: float, flops: float, rate: float):
+    """The least time in ms the card could take: the larger of the bytes
+    over the memory rate and the operations over their peak rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / rate * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
 class Record:
@@ -251,9 +307,7 @@ def serve(args, dev, card: str):
     finally:
         pointnet2.farthest_point_sample, fused_sa.sa_infer = orig_fps, orig_sa
     print(f"phase 4 predict: launches {launches}", flush=True)
-    _check(launches == {"fps": 4, "sa_infer": 8, "extract_fwd": 0,
-                        "extract_bwd": 0},
-           f"expected 4 FPS and 8 fused SA launches, got {launches}")
+    _expect_launches(launches, {"fps": 4, "sa_infer": 8})
     _check(len(calls["fps"]) == 4 and len(calls["sa_infer"]) == 8,
            "captured calls do not match the launches")
     for key, shape in (("center", (B, 3)), ("size", (B, 3)),
@@ -341,32 +395,55 @@ def serve(args, dev, card: str):
           f"finite {ok}", flush=True)
     _check(len(dets) == 4 * B and ok, "run_inference output not finite")
 
-    # 7. times
+    # 7. times, and the least time the card could take for the same work:
+    # every input read once and every output written once; FPS does about
+    # 10 f32 operations per point and pick; K2's products run over the
+    # eff distinct rows of each ball in this run's data.
+    def fps_bound(xyz, k):
+        b, n, _ = xyz.shape
+        return _nbytes(xyz) + b * k * 4, 10.0 * b * n * k
+
+    def sa_bound(cent, xyz, pf, qc, r, k, packs, ws, bs):
+        cnt = (fused_sa.direct_sqdist(cent, xyz)
+               <= fused_sa.radius_sq(r)).sum(-1)
+        rows = float(cnt.clamp(1, k).sum())
+        out = cent.shape[0] * cent.shape[1] * packs[-1].shape[-1] * 2
+        return (_nbytes(cent, xyz, pf, qc, *packs, *ws, *bs) + out,
+                2.0 * rows * sum(w.numel() for w in ws))
+
     kernels = []
-    for name, kern, plain, cl, src, repl, err in (
+    for name, kern, plain, cl, src, repl, err, cost, rate in (
             ("fps", sampling.fps_cuda, sampling.fps_plain, calls["fps"],
              "transferable3d_torch/csrc/fps.cu",
-             "transferable3d_tpu/ops/sampling.py:47", fps_err),
+             "transferable3d_tpu/ops/sampling.py:47", fps_err, fps_bound,
+             PEAK_F32),
             ("sa_infer", fused_sa.sa_infer_cuda, fused_sa.sa_infer_plain,
              calls["sa_infer"], "transferable3d_torch/csrc/sa_infer.cu",
-             "transferable3d_tpu/ops/fused_sa.py:446", sa_err)):
+             "transferable3d_tpu/ops/fused_sa.py:446", sa_err, sa_bound,
+             PEAK_BF16)):
         tot_k = tot_p = 0.0
+        nbytes = flops = 0.0
         for a in cl:
             mk = _time_ms(lambda: kern(*a), 2, 10)
             mp = _time_ms(lambda: plain(*a), 1, 5)
             tot_k += mk
             tot_p += mp
+            by, fl = cost(*a)
+            nbytes += by
+            flops += fl
             shape = (f"[{a[0].shape[0]},{a[0].shape[1]}]->{a[1]}"
                      if name == "fps" else
                      f"S={a[0].shape[1]} K={a[5]} "
                      f"F={[p.shape[-1] for p in a[6]]}")
             print(f"phase 7 {name} {shape}: kernel {mk:.4f} ms, plain "
-                  f"{mp:.4f} ms {card}", flush=True)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[name],
-                        "max_abs_err": err, "ms": tot_k, "plain_ms": tot_p})
+                  f"{mp:.4f} ms, bound {_bound(by, fl, rate)[0]:.4f} ms "
+                  f"{card}", flush=True)
+        bound = _bound(nbytes, flops, rate)
+        kernels.append(_entry(name, src, repl, launches[name], err, tot_k,
+                              tot_p, bound))
         print(f"phase 7 {name} per forward ({len(cl)} calls): kernel "
-              f"{tot_k:.4f} ms, plain {tot_p:.4f} ms {card}", flush=True)
+              f"{tot_k:.4f} ms, plain {tot_p:.4f} ms, bound {bound[0]:.4f} "
+              f"ms by {bound[1]} {card}", flush=True)
     step_ms = _time_ms(lambda: predict(batch), 2, 10)
     print(f"phase 7 predict step B={B}: {step_ms:.3f} ms, "
           f"{B * 1000.0 / step_ms:.1f} frustums/s {card}", flush=True)
@@ -427,6 +504,155 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a * b).sum()) / den if den > 0 else float("nan")
 
 
+class SmallStep:
+    """One train step on a few frustums, on the card or on the CPU, from
+    copies of one model, with one dropout keep mask (phases 10 and 14).
+
+    The frustums are moved to their own mean and onto a 1/256 grid: far
+    from the origin the two devices' expanded-form distances differ by
+    ~1e-5, enough to move a point across a 0.2 m ball's boundary, and FPS
+    is chaotic (one different pick changes every later one); on the grid
+    the squared distances and the mask centroid are exact, so both devices
+    take the same discrete decisions in the seg net. With `pin`, two more
+    decisions are pinned for bf16: the foreground logit's bias is raised
+    past every logit gap (`margin`), so that rounding cannot flip a point
+    of the mask on one side only, and the box net's input is snapped to
+    the grid (`_snap_to_grid`), so that the T-Net's bf16 rounding cannot
+    change the box net's balls on one side only."""
+
+    def __init__(self, cfg, initial, batch, lr, bn, seed, dev):
+        from transferable3d_torch.models import layers
+
+        self.cfg, self.initial, self.lr, self.bn = cfg, initial, lr, bn
+        small = {k: v[:CHECK_B].copy() for k, v in batch.items()}
+        mean = small["points"][..., :3].mean(axis=1)
+        small["points"][..., :3] = np.round(
+            (small["points"][..., :3] - mean[:, None]) * 256) / 256
+        small["center"] = small["center"] - mean
+        self.small = small
+        self.keep = layers.dropout_keep_mask(
+            (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(seed + 2))
+        self.other_keep = layers.dropout_keep_mask(
+            (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(seed + 3))
+        self.perm = np.arange(CHECK_B)[::-1].copy()
+        probe = copy.deepcopy(initial).train()
+        with self._keep_mask(self.keep), torch.no_grad():
+            logits = probe(torch.as_tensor(small["points"], device=dev),
+                           torch.as_tensor(small["one_hot"], device=dev),
+                           bn(0), torch.Generator())["seg_logits"].float()
+        self.margin = 1.0 + 2.0 * float(
+            (logits[..., 1] - logits[..., 0]).abs().max())
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _keep_mask(mask):
+        from transferable3d_torch.models import layers
+
+        orig = layers.dropout_keep_mask
+        layers.dropout_keep_mask = lambda shape, rate, gen: mask
+        try:
+            yield
+        finally:
+            layers.dropout_keep_mask = orig
+
+    def __call__(self, dtype, where, pin=False, order=None, mask_keep=None):
+        """One step on the frustums in `order` with the keep mask
+        `mask_keep` (default `keep`). Returns the loss, the gradients and
+        the predicted mask."""
+        from transferable3d_torch.models import registry
+        from transferable3d_torch.train import train_loop
+
+        m = registry.get_model("frustum_pointnets_v2", self.cfg, dtype=dtype,
+                               device=where)
+        m.load_state_dict(self.initial.state_dict())
+        if pin:
+            with torch.no_grad():
+                m.seg_net.seg_out.bias[1] += self.margin
+            m.box_net.register_forward_pre_hook(_snap_to_grid)
+        st = train_loop.create_train_state(
+            m, train_loop.make_optimizer(self.lr),
+            generator=torch.Generator())
+        b_, k_ = self.small, self.keep if mask_keep is None else mask_keep
+        if order is not None:
+            b_ = {k: v[order] for k, v in b_.items()}
+            k_ = k_[torch.from_numpy(order)]
+        seen = {}
+        hook = m.register_forward_hook(
+            lambda mod, a, out: seen.update(mask=out["mask"].cpu()))
+        try:
+            with self._keep_mask(k_):
+                _, met = train_loop.make_train_step(self.cfg, self.lr,
+                                                    self.bn)(st, b_)
+        finally:
+            hook.remove()
+        mask = seen["mask"]
+        if order is not None:
+            mask = mask[torch.from_numpy(np.argsort(order))]
+        return (float(met["total_loss"]),
+                {k: g.cpu() for k, g in _grads(m).items()}, mask)
+
+
+def compare(a, b):
+    """Relative loss gap, and gradient cosines: the whole model, each
+    net, and the worst leaf."""
+    (la, ga, _), (lb, gb, _) = a, b
+    cos = {}
+    for net in ("all", "seg_net", "tnet", "box_net"):
+        ks = [k for k in ga if net == "all" or k.startswith(net + ".")]
+        cos[net] = _cos(torch.cat([ga[k].ravel() for k in ks]),
+                        torch.cat([gb[k].ravel() for k in ks]))
+    leaf = min((_cos(ga[k].ravel(), gb[k].ravel()), k) for k in ga
+               if float(gb[k].norm()) > 0)
+    return abs(la - lb) / abs(lb), cos, leaf
+
+
+def show(tag, res):
+    rel, cos, leaf = res
+    print(f"{tag}: total loss rel {rel:.4g}, gradient cosine "
+          + ", ".join(f"{k} {v:.5f}" for k, v in cos.items())
+          + f", worst leaf {leaf[1]} {leaf[0]:.4f}", flush=True)
+
+
+def failed(res, limits):
+    """The limits (`BF16_LOSS_REL` and the cosines `limits`) res fails."""
+    return ((["loss"] if res[0] > BF16_LOSS_REL else [])
+            + [k for k, v in limits.items() if res[1][k] < v])
+
+
+def judge(phase, what, limits, runs, controls):
+    """Print every run and control with the limits it fails; require that
+    the first run passes and that every limit is failed by a control."""
+    print(f"{phase} {what}; limits: total loss rel <= {BF16_LOSS_REL}, "
+          "cosine " + ", ".join(f"{k} >= {v}" for k, v in limits.items()),
+          flush=True)
+    for tag, r in {**runs, **controls}.items():
+        show(f"{phase}   {tag}", r)
+        print(f"    fails {failed(r, limits) or 'no limit'}", flush=True)
+    first = next(iter(runs))
+    _check(not failed(runs[first], limits), f"{phase}: {first} disagree")
+    caught = {k for r in controls.values() for k in failed(r, limits)}
+    _check(caught >= {"loss", *limits},
+           f"{phase}: no control fails the limits "
+           f"{sorted({'loss', *limits} - caught)}")
+
+
+@contextlib.contextmanager
+def fused_sa_env(value):
+    """T3D_FUSED_SA set to `value` (None: unset, the default) and restored."""
+    saved = os.environ.get("T3D_FUSED_SA")
+    if value is None:
+        os.environ.pop("T3D_FUSED_SA", None)
+    else:
+        os.environ["T3D_FUSED_SA"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("T3D_FUSED_SA", None)
+        else:
+            os.environ["T3D_FUSED_SA"] = saved
+
+
 def train_batch(cfg):
     """bench.py's v2_train batch from the port's data copies: 32
     synthetic frustums (n_object 600, n_clutter 300), 1024 points each,
@@ -443,17 +669,11 @@ def train_batch(cfg):
 
 
 def train(args, dev, card: str):
-    """Phases 8-11 (training, T3D_FUSED_SA=0) and their times. Returns
-    the kernels' JSON entries for K3 and K4."""
-    saved = os.environ.get("T3D_FUSED_SA")
-    os.environ["T3D_FUSED_SA"] = "0"
-    try:
+    """Phases 8-11 (training on the unfused path, T3D_FUSED_SA=0) and
+    their times. Returns the kernels' JSON entries for K3 and K4, and what
+    the fused phases reuse."""
+    with fused_sa_env("0"):
         return _train(args, dev, card)
-    finally:
-        if saved is None:
-            del os.environ["T3D_FUSED_SA"]
-        else:
-            os.environ["T3D_FUSED_SA"] = saved
 
 
 def _train(args, dev, card: str):
@@ -500,10 +720,8 @@ def _train(args, dev, card: str):
         grouping.extract_fwd_cuda = orig_fwd
         grouping.extract_bwd_cuda = orig_bwd
     print(f"phase 8 train step: launches {launches}", flush=True)
-    _check(launches == {"fps": 4, "sa_infer": 0, "extract_fwd": 8,
-                        "extract_bwd": 8},
-           f"expected 4 FPS, 0 fused SA, 8 K3 and 8 K4 launches, got "
-           f"{launches}")
+    _expect_launches(launches, {"fps": 4, "extract_fwd": 8,
+                                "extract_bwd": 8})
     _check(len(calls["extract_fwd"]) == 8 and len(calls["extract_bwd"]) == 8,
            "captured calls do not match the launches")
     vals = {k: float(v) for k, v in metrics.items()}
@@ -572,109 +790,24 @@ def _train(args, dev, card: str):
             _check(eq >= 0.999 and within and exact,
                    "K4 disagrees with its plain twin")
 
-    # 10. the card against the CPU: one step on 8 frustums from copies of
-    # the same model, with one dropout keep mask for every step. The
-    # frustums are moved to their own mean and onto a 1/256 grid: far from
-    # the origin the two devices' expanded-form distances differ by ~1e-5,
-    # enough to move a point across a 0.2 m ball's boundary, and FPS is
-    # chaotic (one different pick changes every later one); on the grid
-    # the squared distances and the mask centroid are exact, so both
-    # devices take the same discrete decisions in the seg net. In bf16
-    # two more decisions are pinned: the foreground logit's bias is
-    # raised past every logit gap, so that rounding cannot flip a point
-    # of the mask on one side only, and the box net's input is snapped
-    # to the grid (`_snap_to_grid`), so that the T-Net's bf16 rounding
-    # cannot change the box net's balls on one side only.
-    small = {k: v[:CHECK_B].copy() for k, v in batch.items()}
-    mean = small["points"][..., :3].mean(axis=1)
-    small["points"][..., :3] = np.round(
-        (small["points"][..., :3] - mean[:, None]) * 256) / 256
-    small["center"] = small["center"] - mean
-    keep = layers.dropout_keep_mask(
-        (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(args.seed + 2))
-    perm = np.arange(CHECK_B)[::-1].copy()
-
-    def one_step(dtype, where, pin=False, order=None, mask_keep=None):
-        """One train step on `small` (its frustums in `order`) with the
-        dropout keep mask `mask_keep` (default `keep`); `pin` adds the
-        foreground `margin` and snaps the box net's input to the grid.
-        Returns the loss, the gradients and the mask."""
-        m = registry.get_model("frustum_pointnets_v2", cfg, dtype=dtype,
-                               device=where)
-        m.load_state_dict(initial.state_dict())
-        if pin:
-            with torch.no_grad():
-                m.seg_net.seg_out.bias[1] += margin
-            m.box_net.register_forward_pre_hook(_snap_to_grid)
-        st = train_loop.create_train_state(
-            m, train_loop.make_optimizer(lr), generator=torch.Generator())
-        b_, k_ = small, keep if mask_keep is None else mask_keep
-        if order is not None:
-            b_ = {k: v[order] for k, v in small.items()}
-            k_ = k_[torch.from_numpy(order)]
-        seen = {}
-        hook = m.register_forward_hook(
-            lambda mod, a, out: seen.update(mask=out["mask"].cpu()))
-        orig_keep = layers.dropout_keep_mask
-        layers.dropout_keep_mask = lambda shape, rate, gen: k_
-        try:
-            _, met = train_loop.make_train_step(cfg, lr, bn)(st, b_)
-        finally:
-            layers.dropout_keep_mask = orig_keep
-            hook.remove()
-        mask = seen["mask"]
-        if order is not None:
-            mask = mask[torch.from_numpy(np.argsort(order))]
-        return (float(met["total_loss"]),
-                {k: g.cpu() for k, g in _grads(m).items()}, mask)
-
-    def compare(a, b):
-        """Relative loss gap, and gradient cosines: the whole model, each
-        net, and the worst leaf."""
-        (la, ga, _), (lb, gb, _) = a, b
-        cos = {}
-        for net in ("all", "seg_net", "tnet", "box_net"):
-            ks = [k for k in ga if net == "all" or k.startswith(net + ".")]
-            cos[net] = _cos(torch.cat([ga[k].ravel() for k in ks]),
-                            torch.cat([gb[k].ravel() for k in ks]))
-        leaf = min((_cos(ga[k].ravel(), gb[k].ravel()), k) for k in ga
-                   if float(gb[k].norm()) > 0)
-        return abs(la - lb) / abs(lb), cos, leaf
-
-    def show(tag, res):
-        rel, cos, leaf = res
-        print(f"phase 10 {tag}: total loss rel {rel:.4g}, gradient cosine "
-              + ", ".join(f"{k} {v:.5f}" for k, v in cos.items())
-              + f", worst leaf {leaf[1]} {leaf[0]:.4f}", flush=True)
-
+    # 10. the card against the CPU: one step on 8 frustums (SmallStep)
+    one_step = SmallStep(cfg, initial, batch, lr, bn, args.seed, dev)
     on_card, on_cpu = (one_step(torch.float32, w) for w in ("cuda", "cpu"))
     _check(torch.equal(on_card[2], on_cpu[2]), "float32 masks differ")
     res = compare(on_card, on_cpu)
-    show(f"card vs CPU, float32 ({CHECK_B} frustums)", res)
+    show(f"phase 10 card vs CPU, float32 ({CHECK_B} frustums)", res)
     _check(res[0] <= 0.02 and res[1]["all"] >= 0.99,
            "the card's float32 train step disagrees with the CPU's")
 
-    probe = copy.deepcopy(initial).train()
-    orig_keep = layers.dropout_keep_mask
-    layers.dropout_keep_mask = lambda shape, rate, gen: keep
-    try:
-        with torch.no_grad():
-            logits = probe(torch.as_tensor(small["points"], device=dev),
-                           torch.as_tensor(small["one_hot"], device=dev),
-                           bn(0), torch.Generator())["seg_logits"].float()
-    finally:
-        layers.dropout_keep_mask = orig_keep
-    margin = 1.0 + 2.0 * float((logits[..., 1] - logits[..., 0]).abs().max())
     bf = torch.bfloat16
     on_card, on_cpu = one_step(bf, "cuda", True), one_step(bf, "cpu", True)
     _check(torch.equal(on_card[2], on_cpu[2]) and bool(on_card[2].all()),
            "bf16 masks differ or are not full")
-    res = compare(on_card, on_cpu)
-    runs = {"card vs CPU": res,
+    runs = {"card vs CPU": compare(on_card, on_cpu),
             "witness: card vs card on the batch reversed":
-                compare(on_card, one_step(bf, "cuda", True, perm)),
+                compare(on_card, one_step(bf, "cuda", True, one_step.perm)),
             "witness: CPU vs CPU on the batch reversed":
-                compare(on_cpu, one_step(bf, "cpu", True, perm))}
+                compare(on_cpu, one_step(bf, "cpu", True, one_step.perm))}
     # Controls: faults the limits must reject. The CPU side summing the
     # grouped cotangent in bf16 (what its backward did before it summed
     # in f32); both sides with the mask and the box net's balls left
@@ -688,27 +821,10 @@ def _train(args, dev, card: str):
         grouping._SlotGather = orig_gather
     controls["control: both sides unpinned"] = compare(
         one_step(bf, "cuda"), one_step(bf, "cpu"))
-    other = layers.dropout_keep_mask(
-        (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(args.seed + 3))
     controls["control: CPU with another dropout mask"] = compare(
-        on_card, one_step(bf, "cpu", True, mask_keep=other))
-    print(f"phase 10 bf16 ({CHECK_B} frustums, foreground margin "
-          f"{margin:.4g}); limits: total loss rel <= {BF16_LOSS_REL}, "
-          "cosine " + ", ".join(f"{k} >= {v}" for k, v in BF16_COS.items()),
-          flush=True)
-
-    def failed(r):
-        return ((["loss"] if r[0] > BF16_LOSS_REL else [])
-                + [k for k, v in BF16_COS.items() if r[1][k] < v])
-
-    for tag, r in {**runs, **controls}.items():
-        show(f"  {tag}", r)
-        print(f"    fails {failed(r) or 'no limit'}", flush=True)
-    _check(not failed(res),
-           "the card's bfloat16 train step disagrees with the CPU's")
-    caught = {k for r in controls.values() for k in failed(r)}
-    _check(caught >= {"loss", *BF16_COS},
-           f"no control fails the limits {sorted({'loss', *BF16_COS} - caught)}")
+        on_card, one_step(bf, "cpu", True, mask_keep=one_step.other_keep))
+    judge("phase 10", f"bf16 ({CHECK_B} frustums, foreground margin "
+          f"{one_step.margin:.4g})", BF16_COS, runs, controls)
 
     # 11. 30 steps on the fixed batch
     losses = []
@@ -738,22 +854,447 @@ def _train(args, dev, card: str):
                  c, x, d, r, k, x.shape[1]),
              calls["extract_bwd"],
              "transferable3d_tpu/ops/grouping.py:381", bwd_err)):
-        tot_k = tot_p = 0.0
+        tot_k = tot_p = nbytes = 0.0
         for a in cl:
             mk = _time_ms(lambda: kern(*a), 2, 10)
             mp = _time_ms(lambda: plain(*a), 1, 5)
             tot_k += mk
             tot_p += mp
+            cent, xyz, other, _, k = a
+            rows = cent.shape[0] * cent.shape[1] * k * other.shape[-1] * 2
+            # K3: payload in, rows and counts out; K4: rows in, dpay out
+            by = (_nbytes(cent, xyz, other) + rows + cent.shape[0]
+                  * (cent.shape[1] * 4 if name == "extract_fwd"
+                     else xyz.shape[1] * other.shape[-1] * 2))
+            nbytes += by
             print(f"times {name} S={a[0].shape[1]} N={a[1].shape[1]} "
                   f"K={a[4]} C={a[2].shape[-1]}: kernel {mk:.4f} ms, plain "
-                  f"{mp:.4f} ms {card}", flush=True)
+                  f"{mp:.4f} ms, bound {_bound(by, 0, PEAK_F32)[0]:.4f} ms "
+                  f"{card}", flush=True)
+        bound = _bound(nbytes, 0, PEAK_F32)
         print(f"times {name} per step ({len(cl)} calls): kernel "
-              f"{tot_k:.4f} ms, plain {tot_p:.4f} ms {card}", flush=True)
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "transferable3d_torch/csrc/ball_extract.cu",
-                        "replaces": repl, "launches": launches[name],
-                        "max_abs_err": err, "ms": tot_k, "plain_ms": tot_p})
+              f"{tot_k:.4f} ms, plain {tot_p:.4f} ms, bound {bound[0]:.4f} "
+              f"ms by {bound[1]} {card}", flush=True)
+        kernels.append(_entry(
+            name, "transferable3d_torch/csrc/ball_extract.cu", repl,
+            launches[name], err, tot_k, tot_p, bound))
+    return kernels, {"cfg": cfg, "batch": batch, "initial": initial,
+                     "lr": lr, "bn": bn, "one_step": one_step,
+                     "unfused_ms": step_ms, "unfused_peak": peak}
+
+
+# Phase 14's bf16 limits (fused set abstraction on the card and on the
+# CPU): set from the readings in PERF.md as `BF16_COS` is, each failed by
+# one of the phase's controls.
+FUSED_COS = {"all": 0.92, "seg_net": 0.985, "tnet": 0.3, "box_net": 0.95}
+# The five training kernels: counter, JAX kernel replaced, source file.
+FUSED_KERNELS = (
+    ("sa_extract", "transferable3d_tpu/ops/fused_sa.py:196",
+     "sa_train_fwd.cu"),
+    ("sa_fwd_step", "transferable3d_tpu/ops/fused_sa.py:344",
+     "sa_train_fwd.cu"),
+    ("sa_fwd_last", "transferable3d_tpu/ops/fused_sa.py:359",
+     "sa_train_fwd.cu"),
+    ("sa_bwd_step", "transferable3d_tpu/ops/fused_sa.py:418",
+     "sa_train_bwd.cu"),
+    ("sa_bwd_step0", "transferable3d_tpu/ops/fused_sa.py:548",
+     "sa_train_bwd.cu"))
+
+
+def _rel(got, ref) -> float:
+    """Norm-wise relative error of an f32 sum against the twin's."""
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _bf16_agree(got, ref):
+    """Share of bit-identical values, max |diff| and max |ref|."""
+    g, r = got.float(), ref.float()
+    return (float((g == r).float().mean()), float((g - r).abs().max()),
+            float(r.abs().max()))
+
+
+class FusedChecks:
+    """K5-K9 against their plain twins (phase 13). Every method takes one
+    call's arguments, runs kernel and twin, prints one line, fails on a
+    disagreement and returns the max |diff| of the main output.
+
+    Limits, given the same packs on both sides: z1 identical (a gather
+    and one subtraction); z' and dy_j >= 99% bit-identical with max |diff|
+    <= 1% of max (the products' f32 sums run in another order, which can
+    move a bf16 rounding one step); K7's extrema the max and min of its
+    own z'; the forward's f32 sums within 1e-4 of the twin's norm; the
+    backward's (sum dy_j, sum dy_j xhat_j, dW_j, db_j) within 1e-4 of the
+    sums of their terms' magnitudes, since db_j is zero in exact
+    arithmetic in train mode and the others cancel in part; cnt exact; H within one bf16 step of every slot's magnitude plus 1e-5 of
+    the magnitudes of dh's product terms (the f32 order where terms
+    cancel); Mq within 1e-5 (the atomics' order). Each kernel's sums are
+    bit-identical when it runs twice."""
+
+    def __init__(self):
+        from transferable3d_torch.ops import fused_sa, grouping
+
+        self.fs, self.grouping = fused_sa, grouping
+
+    def _check_sums(self, what, names, got, ref, again, mags=None):
+        """Forward sums against the twin's norm; with `mags`, backward
+        sums against the sums of their terms' magnitudes."""
+        out = []
+        for i, (name, a, b, c) in enumerate(zip(names, got, ref, again)):
+            if mags is None:
+                err = _rel(a, b)
+            else:
+                err = float(((a - b).abs() / (mags[i] + 1e-30)).max())
+            out.append(f"{name} {err:.2e}")
+            _check(a.shape == b.shape and err <= 1e-4,
+                   f"{what}: {name} off by {err:.3g} (> 1e-4)")
+            _check(torch.equal(a, c), f"{what}: {name} differs between two "
+                   "runs on the same inputs")
+        return (("sums rel " if mags is None else "sums / sum|terms| ")
+                + " ".join(out) + ", twice identical")
+
+    def extract(self, tag, cent, xyz, pf, qc, r, k):
+        fs = self.fs
+        got, ref = (f(cent, xyz, pf, qc, r, k)
+                    for f in (fs.sa_extract_cuda, fs.sa_extract_plain))
+        again = fs.sa_extract_cuda(cent, xyz, pf, qc, r, k)
+        same = torch.equal(got[0], ref[0])
+        sums = self._check_sums("K5", ("sum", "sumsq"), got[1:], ref[1:],
+                                again[1:])
+        print(f"phase 13{tag} K5 S={cent.shape[1]} K={k} F0={pf.shape[-1]}:"
+              f" z1 identical {same}, {sums}", flush=True)
+        _check(same, "K5 disagrees with its plain twin")
+        return float((got[0].float() - ref[0].float()).abs().max()), ref
+
+    def fwd_step(self, tag, z_prev, pack, w, b, last):
+        fs = self.fs
+        got, ref = (f(z_prev, pack, w, b, last)
+                    for f in (fs.sa_fwd_step_cuda, fs.sa_fwd_step_plain))
+        again = fs.sa_fwd_step_cuda(z_prev, pack, w, b, last)
+        eq, err, top = _bf16_agree(got[0], ref[0])
+        name = "K7" if last else "K6"
+        sums = self._check_sums(name, ("sum", "sumsq"), got[1:3], ref[1:3],
+                                again[1:3])
+        line = (f"phase 13{tag} {name} K={z_prev.shape[2]} "
+                f"F={z_prev.shape[-1]}->{w.shape[-1]}: z' bit-identical "
+                f"{eq:.6f} max|diff| {err:.4g} (max {top:.4g}), {sums}")
+        _check(eq >= 0.99 and err <= 0.01 * top,
+               f"{name} disagrees with its plain twin")
+        if last:
+            own = (torch.equal(got[3], got[0].float().amax(dim=2))
+                   and torch.equal(got[4], got[0].float().amin(dim=2)))
+            eqx = min(float((got[i] == ref[i]).float().mean())
+                      for i in (3, 4))
+            line += f", extrema of its own z' {own}, same as the twin's {eqx:.6f}"
+            _check(own and eqx >= 0.99, "K7's extrema disagree")
+        print(line, flush=True)
+        return err, ref
+
+    _BWD = ("sdy", "sdyx", "dw", "db")
+
+    def bwd_step(self, tag, train, top, z_j, z_j1, dy_src, pack_j, pack_j1,
+                 w_j):
+        fs = self.fs
+        a = (train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j)
+        got, ref = fs.sa_bwd_step_cuda(*a), fs.sa_bwd_step_plain(*a)
+        again = fs.sa_bwd_step_cuda(*a)
+        eq, err, mx = _bf16_agree(got[0], ref[0])
+        sums = self._check_sums("K8", self._BWD, got[1:], ref[1:], again[1:],
+                                fs.sa_bwd_sum_magnitudes(*a))
+        print(f"phase 13{tag} K8 train={train} top={top} K={z_j.shape[2]} "
+              f"F={z_j.shape[-1]}<-{z_j1.shape[-1]}: dy bit-identical "
+              f"{eq:.6f} max|diff| {err:.4g} (max {mx:.4g}), {sums}",
+              flush=True)
+        _check(eq >= 0.99 and err <= 0.01 * mx,
+               "K8 disagrees with its plain twin")
+        return err, ref
+
+    def bwd_step0(self, tag, train, top, z_j, z_j1, dy_src, cent, xyz, qc,
+                  pack_j, pack_j1, w_j, r):
+        fs, grouping = self.fs, self.grouping
+        a = (train, top, z_j, z_j1, dy_src, cent, xyz, qc, pack_j, pack_j1,
+             w_j, r)
+        got, ref = fs.sa_bwd_step0_cuda(*a), fs.sa_bwd_step0_plain(*a)
+        again = fs.sa_bwd_step0_cuda(*a)
+        sums = self._check_sums(
+            "K9", self._BWD, got[:4], ref[:4], again[:4],
+            fs.sa_bwd_sum_magnitudes(train, top, z_j, z_j1, dy_src, pack_j,
+                                     pack_j1, w_j))
+        k, n = z_j.shape[2], xyz.shape[1]
+        dz = fs._step_dz_plain(train, top, z_j1, dy_src, pack_j1)
+        dy0 = fs.sa_bwd_step_plain(train, top, z_j, z_j1, dy_src, pack_j,
+                                 pack_j1, w_j)[0]
+        mag = torch.matmul(dz.float().abs(),
+                           w_j.bfloat16().float().abs().t())
+        idx, _ = fs._slots(cent, xyz, r, k)
+        bound = (grouping.scatter_rows(idx, dy0.abs(), n, torch.float32)
+                 / 128 + 1e-30
+                 + 1e-5 * grouping.scatter_rows(idx, mag, n, torch.float32))
+        err = float((got[4] - ref[4]).abs().max())
+        excess = float(((got[4] - ref[4]).abs() / bound).max())
+        cnt_same = torch.equal(got[6], ref[6])
+        rels = [_rel(got[i], ref[i]) for i in (4, 5, 7, 8)]
+        print(f"phase 13{tag} K9 train={train} top={top} K={k} "
+              f"F={z_j.shape[-1]}<-{z_j1.shape[-1]}: cnt identical "
+              f"{cnt_same}, H max|diff| {err:.4g} = {excess:.3f} of its "
+              f"bound, rel H {rels[0]:.2e} Mq {rels[1]:.2e} Sdy "
+              f"{rels[2]:.2e} Sz {rels[3]:.2e}, {sums}", flush=True)
+        _check(cnt_same and excess <= 1.0 and rels[1] <= 1e-5
+               and rels[2] <= 1e-2 and rels[3] <= 1e-5,
+               "K9 disagrees with its plain twin")
+        return err, ref
+
+
+def train_fused(args, dev, card: str, ctx):
+    """Phases 12-15: training with T3D_FUSED_SA unset (the default), the
+    fused set-abstraction path through kernels K5-K9. Returns their JSON
+    entries."""
+    with fused_sa_env(None):
+        return _train_fused(args, dev, card, ctx)
+
+
+def _train_fused(args, dev, card: str, ctx):
+    from transferable3d_torch.models import pointnet2, registry
+    from transferable3d_torch.ops import _build, fused_sa
+    from transferable3d_torch.train import train_loop
+
+    cfg, batch, lr, bn = ctx["cfg"], ctx["batch"], ctx["lr"], ctx["bn"]
+
+    def fresh():
+        m = registry.get_model("frustum_pointnets_v2", cfg,
+                               dtype=torch.bfloat16, device=dev)
+        m.load_state_dict(ctx["initial"].state_dict())
+        return m, train_loop.create_train_state(
+            m, train_loop.make_optimizer(lr), seed=args.seed)
+
+    # 12. one train step at the v2_train width, K5-K9 arguments captured
+    model, state = fresh()
+    step = train_loop.make_train_step(
+        cfg, lr, bn, train_loop.StepConfig(compute_iou_metrics=True))
+    wrappers = {"sa_extract": "sa_extract_cuda",
+                "sa_fwd": "sa_fwd_step_cuda",
+                "sa_bwd_step": "sa_bwd_step_cuda",
+                "sa_bwd_step0": "sa_bwd_step0_cuda"}
+    calls = {k: [] for k in wrappers}
+    orig = {k: getattr(fused_sa, fn) for k, fn in wrappers.items()}
+
+    def detached(x):
+        if torch.is_tensor(x):
+            return x.detach()
+        return tuple(map(detached, x)) if isinstance(x, tuple) else x
+
+    def recorder(key):
+        def rec(*a):
+            calls[key].append(detached(a))
+            return orig[key](*a)
+        return rec
+
+    for key, fn in wrappers.items():
+        setattr(fused_sa, fn, recorder(key))
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for key, fn in wrappers.items():
+            setattr(fused_sa, fn, orig[key])
+    print(f"phase 12 fused train step: launches {launches}", flush=True)
+    _expect_launches(launches, {"fps": 4, **{k: 8 for k, _, _ in
+                                             FUSED_KERNELS}})
+    _check(len(calls["sa_extract"]) == 8 and len(calls["sa_fwd"]) == 16
+           and len(calls["sa_bwd_step"]) == 8
+           and len(calls["sa_bwd_step0"]) == 8,
+           "captured calls do not match the launches")
+    vals = {k: float(v) for k, v in metrics.items()}
+    print("  metrics: " + " ".join(f"{k} {v:.5g}" for k, v in vals.items()),
+          flush=True)
+    _check(all(math.isfinite(v) for v in vals.values()),
+           "a loss term or metric is not finite")
+    grads = _grads(model)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    _check(not bad, f"non-finite gradients: {bad}")
+    zero = [k for k, g in grads.items() if not bool((g != 0).any())]
+    print(f"  gradients: {len(grads)} leaves finite; all-zero leaves "
+          f"{zero}", flush=True)
+
+    # 13. every kernel against its twin on the captured arguments, and the
+    # chain again with every other centroid moved 100 m away (empty
+    # balls), each kernel then on the twin's output of the one before.
+    # The backward runs the scales in another order: pair by the z tensors.
+    check = FusedChecks()
+    errs = {k: 0.0 for k, _, _ in FUSED_KERNELS}
+    k6 = [a for a in calls["sa_fwd"] if not a[4]]
+    k7 = [a for a in calls["sa_fwd"] if a[4]]
+    k8 = {a[2].data_ptr(): a for a in calls["sa_bwd_step"]}
+    k9 = {a[2].data_ptr(): a for a in calls["sa_bwd_step0"]}
+    for i, (a5, a6, a7) in enumerate(zip(calls["sa_extract"], k6, k7)):
+        a8, a9 = k8[a7[0].data_ptr()], k9[a6[0].data_ptr()]
+        share = _ball_shares(a5[0], a5[1], a5[4], a5[5])
+        print(f"phase 13 scale {i}: S={a5[0].shape[1]} N={a5[1].shape[1]} "
+              f"K={a5[5]} r={a5[4]}: "
+              + " ".join(f"{nm} {v:.4f}" for nm, v in share.items()),
+              flush=True)
+        for key, err in (
+                ("sa_extract", check.extract("", *a5)[0]),
+                ("sa_fwd_step", check.fwd_step("", *a6)[0]),
+                ("sa_fwd_last", check.fwd_step("", *a7)[0]),
+                ("sa_bwd_step", check.bwd_step("", *a8)[0]),
+                ("sa_bwd_step0", check.bwd_step0("", *a9)[0])):
+            errs[key] = max(errs[key], err)
+        far = a5[0].clone()
+        far[:, ::2] += 100.0
+        tag = " empty-ball probe"
+        _, (z0, _, _) = check.extract(tag, far, *a5[1:])
+        _, (z1, _, _) = check.fwd_step(tag, z0, *a6[1:])
+        _, (z2, _, _, zmax, zmin) = check.fwd_step(tag, z1, *a7[1:])
+        pooled = fused_sa._pool_epilogue(zmax, zmin, a8[6])
+        _, (dy1, *_) = check.bwd_step(tag, a8[0], a8[1], z1, z2,
+                                      (pooled, a8[4][1]), *a8[5:])
+        check.bwd_step0(tag, a9[0], a9[1], z0, z1, dy1, far, *a9[6:])
+
+    # The forward of one step twice from the same start: the BN running
+    # statistics of every grouped MLP, which hold K5-K7's batch means and
+    # variances, are the same bits. (The backward's dW and db are held
+    # bit-identical per kernel above; across two whole steps their inputs
+    # pass through PyTorch's own atomics.)
+    stats = []
+    for _ in range(2):
+        m, st = fresh()
+        step(st, batch)
+        stats.append({f"{name}.{key}": buf.clone()
+                      for name, mod in m.named_modules()
+                      if isinstance(mod, pointnet2.GroupedPointMLP)
+                      for key, buf in mod.named_buffers()})
+    same = all(torch.equal(stats[0][k], stats[1][k]) for k in stats[0])
+    print(f"phase 13 two steps from one start: {len(stats[0])} BN running "
+          f"statistics of the grouped MLPs bit-identical {same}", flush=True)
+    _check(same and len(stats[0]) == 48,
+           "the fused step's batch statistics differ between two runs")
+
+    # 14. the card against the CPU, fused on both (the plain twins on the
+    # CPU), bf16, pinned as in phase 10; the witnesses; controls that must
+    # fail the limits; and the card's fused step against its unfused one.
+    one_step = ctx["one_step"]
+    bf = torch.bfloat16
+    on_card, on_cpu = one_step(bf, "cuda", True), one_step(bf, "cpu", True)
+    _check(torch.equal(on_card[2], on_cpu[2]) and bool(on_card[2].all()),
+           "bf16 masks differ or are not full")
+    runs = {"card vs CPU": compare(on_card, on_cpu),
+            "witness: card vs card on the batch reversed":
+                compare(on_card, one_step(bf, "cuda", True, one_step.perm)),
+            "witness: CPU vs CPU on the batch reversed":
+                compare(on_cpu, one_step(bf, "cpu", True, one_step.perm))}
+    # Controls: the CPU side's backward without the batch-statistic terms
+    # (the eval forms of K8 and K9); both sides unpinned; the CPU side
+    # with another dropout mask.
+    orig_bwd = fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0
+    fused_sa.sa_bwd_step = lambda train, *a: orig_bwd[0](False, *a)
+    fused_sa.sa_bwd_step0 = lambda train, *a: orig_bwd[1](False, *a)
+    try:
+        controls = {"control: CPU backward without the batch-statistic "
+                    "terms": compare(on_card, one_step(bf, "cpu", True))}
+    finally:
+        fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0 = orig_bwd
+    controls["control: both sides unpinned"] = compare(
+        one_step(bf, "cuda"), one_step(bf, "cpu"))
+    controls["control: CPU with another dropout mask"] = compare(
+        on_card, one_step(bf, "cpu", True, mask_keep=one_step.other_keep))
+    judge("phase 14", f"fused, bf16 ({CHECK_B} frustums)", FUSED_COS, runs,
+          controls)
+    with fused_sa_env("0"):
+        unfused = one_step(bf, "cuda", True)
+    show("phase 14 reading: card fused vs card unfused",
+         compare(on_card, unfused))
+
+    # 15. 30 steps on the fixed batch, then times
+    losses = []
+    for _ in range(30):
+        state, met = step(state, batch)
+        losses.append(float(met["total_loss"]))
+    print(f"phase 15 30 fused steps: first {losses[0]:.5g}, mean of last 5 "
+          f"{np.mean(losses[-5:]):.5g}, all finite "
+          f"{all(map(math.isfinite, losses))}", flush=True)
+    _check(all(map(math.isfinite, losses)), "a training loss is not finite")
+    _check(np.mean(losses[-5:]) < losses[0], "the loss did not decrease")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = _time_ms(lambda: step(state, batch), 2, 5)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"times fused train step B={B}: {step_ms:.3f} ms, "
+          f"{B * 1000.0 / step_ms:.1f} frustums/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; unfused step in this run: "
+          f"{ctx['unfused_ms']:.3f} ms, "
+          f"{B * 1000.0 / ctx['unfused_ms']:.1f} frustums/s, "
+          f"{ctx['unfused_peak'] / 2**30:.2f} GiB {card}", flush=True)
+
+    # Per kernel and shape: time, the twin's time, and the bound (inputs
+    # read once, outputs written once; the products' multiply-adds at the
+    # bf16 tensor-core rate).
+    def cost(key, a):
+        if key == "sa_extract":
+            cent, xyz, pf, qc, _, k = a
+            rows = cent.shape[0] * cent.shape[1] * k
+            return _nbytes(cent, xyz, pf, qc) + rows * pf.shape[-1] * 2, 0.0
+        if key in ("sa_fwd_step", "sa_fwd_last"):
+            z, pack, w, b, last = a
+            rows = z.numel() // z.shape[-1]
+            out = rows * w.shape[-1] * 2 + (
+                2 * z.shape[0] * z.shape[1] * w.shape[-1] * 4 if last else 0)
+            return _nbytes(z, pack, w, b) + out, 2.0 * rows * w.numel()
+        z_j, z_j1, dy_src = a[2:5]
+        w_j = a[-2] if key == "sa_bwd_step0" else a[-1]
+        rows = z_j.numel() // z_j.shape[-1]
+        by = _nbytes(z_j, z_j1, *a[5:]) + (
+            _nbytes(*dy_src) if isinstance(dy_src, tuple)
+            else _nbytes(dy_src))
+        if key == "sa_bwd_step":
+            by += z_j.numel() * 2
+        else:  # H, Mq, cnt, Sdy, Sz
+            b_, n, f = a[6].shape[0], a[6].shape[1], z_j.shape[-1]
+            by += (b_ * n * (2 * f + 1) + 2 * z_j.shape[0] * z_j.shape[1]
+                   * f) * 4
+        return by, 4.0 * rows * w_j.numel()
+
+    fs = fused_sa
+    per_kernel = {
+        "sa_extract": (fs.sa_extract_cuda, fs.sa_extract_plain,
+                       calls["sa_extract"]),
+        "sa_fwd_step": (fs.sa_fwd_step_cuda, fs.sa_fwd_step_plain, k6),
+        "sa_fwd_last": (fs.sa_fwd_step_cuda, fs.sa_fwd_step_plain, k7),
+        "sa_bwd_step": (fs.sa_bwd_step_cuda, fs.sa_bwd_step_plain,
+                        calls["sa_bwd_step"]),
+        "sa_bwd_step0": (fs.sa_bwd_step0_cuda, fs.sa_bwd_step0_plain,
+                         calls["sa_bwd_step0"])}
+    kernels = []
+    for name, repl, src in FUSED_KERNELS:
+        kern, plain, cl = per_kernel[name]
+        tot_k = tot_p = nbytes = flops = 0.0
+        for a in cl:
+            mk = _time_ms(lambda: kern(*a), 2, 10)
+            mp = _time_ms(lambda: plain(*a), 1, 3)
+            by, fl = cost(name, a)
+            tot_k += mk
+            tot_p += mp
+            nbytes += by
+            flops += fl
+            z = a[0] if name.startswith("sa_fwd") else (
+                a[2] if name.startswith("sa_bwd") else None)
+            shape = (f"S={a[0].shape[1]} K={a[5]} F0={a[2].shape[-1]}"
+                     if z is None else
+                     f"S={z.shape[1]} K={z.shape[2]} F={z.shape[-1]}")
+            print(f"times {name} {shape}: kernel {mk:.4f} ms, plain "
+                  f"{mp:.4f} ms, bound "
+                  f"{_bound(by, fl, PEAK_BF16)[0]:.4f} ms {card}",
+                  flush=True)
+        bound = _bound(nbytes, flops, PEAK_BF16)
+        print(f"times {name} per step ({len(cl)} calls): kernel "
+              f"{tot_k:.4f} ms, plain {tot_p:.4f} ms, bound {bound[0]:.4f} "
+              f"ms by {bound[1]} {card}", flush=True)
+        kernels.append(_entry(name, "transferable3d_torch/csrc/" + src, repl,
+                              launches[name], errs[name], tot_k, tot_p,
+                              bound))
     return kernels
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -794,7 +1335,8 @@ def main() -> None:
 
     with torch.no_grad():
         kernels = serve(args, dev, card)
-    kernels += train(args, dev, card)
+    unfused_kernels, ctx = train(args, dev, card)
+    kernels += unfused_kernels + train_fused(args, dev, card, ctx)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,109 @@
+"""Where a train step of the PyTorch port spends its time on the card.
+
+    python3 scripts/torch_profile_train_step.py [--fused 0|1] [--steps 3]
+
+Builds F-PointNet v2 in bf16 at the `v2_train` width of chip_smoke.py
+(B=128, N=1024, C=4, 512 object points; seeded weights and the port's
+synthetic batch), runs 3 warm-up steps, times `--steps` steps with CUDA
+events, then profiles the same number of steps with `torch.profiler` and
+prints: the step time, the device time per step (the sum of the kernels'
+own times, so the idle share follows), the number of device kernels per
+step, the five training kernels' (or, with `--fused 0`, K3/K4's) times by
+name, and the operators that hold the most device time. `--fused 1` (the
+default) leaves `T3D_FUSED_SA` unset; `--fused 0` sets it to "0". Needs
+one NVIDIA GPU; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fused", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs an NVIDIA GPU (CUDA)")
+    import chip_smoke
+    from transferable3d_torch.core import bins
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.train import schedules, train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda:0")
+    cfg = bins.SUNRGBD
+    batch = chip_smoke.train_batch(cfg)
+    nb = chip_smoke.B
+    model = registry.get_model(
+        "frustum_pointnets_v2", cfg, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(args.seed + 1))
+    lr = schedules.exponential_staircase_lr(batch_size=nb)
+    bn = schedules.bn_momentum_schedule(batch_size=nb)
+    state = train_loop.create_train_state(
+        model, train_loop.make_optimizer(lr), seed=args.seed)
+    step = train_loop.make_train_step(
+        cfg, lr, bn, train_loop.StepConfig(compute_iou_metrics=True))
+
+    with chip_smoke.fused_sa_env(None if args.fused else "0"):
+        ms = chip_smoke._time_ms(lambda: step(state, batch), 3, args.steps)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.steps):
+                step(state, batch)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # Kernel rows carry the device's own time; an operator row repeats the
+    # time of the kernels it launched, so only one kind is summed.
+    from torch.autograd import DeviceType
+
+    rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in rows)
+    kernels = sum(e.count for e in rows)
+    path = "fused (T3D_FUSED_SA unset)" if args.fused else "T3D_FUSED_SA=0"
+    print(f"[{card}] train step B={nb}, {path}: {ms:.3f} ms a step "
+          f"unprofiled ({nb * 1000.0 / ms:.1f} frustums/s); device time "
+          f"{total / 1e3 / args.steps:.3f} ms a step, idle share "
+          f"{1 - total / 1e3 / args.steps / ms:.3f}; {kernels // args.steps} "
+          "device kernels a step")
+    if total == 0:
+        sys.exit("the profiler recorded no device time")
+    ours = [e for e in rows if "sa_" in e.key or "extract" in e.key
+            or "fps" in e.key or "reduce_partials" in e.key]
+    for e in sorted(ours, key=dev_us, reverse=True):
+        print(f"  kernel {e.key[:70]}: {dev_us(e) / 1e3 / args.steps:.3f} ms "
+              f"a step ({dev_us(e) / total:.1%}), {e.count // args.steps} "
+              "launches")
+    print("  operators by their own device time:")
+    top = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=dev_us, reverse=True)[:12]
+    for e in top:
+        print(f"    {e.key}: {dev_us(e) / 1e3 / args.steps:.3f} ms a step "
+              f"({dev_us(e) / total:.1%}), {e.count // args.steps} calls")
+
+
+if __name__ == "__main__":
+    main()

@@ -160,3 +160,261 @@ def test_extract_kernels_refuse_bad_inputs():
     for d in bad_bwd:
         with pytest.raises(ValueError):
             grouping.extract_bwd_cuda(cent, xyz, d, 0.4, 16)
+
+
+# --- fused SA training, K5-K9 ---------------------------------------------
+# The 8 grouped SA scales again, with their chains (N, S, radius, K, F0-F1-F2).
+TRAIN_SCALES = [(1024, 128, 0.2, 32, (32, 32, 64)),
+                (1024, 128, 0.4, 64, (64, 64, 128)),
+                (1024, 128, 0.8, 128, (64, 96, 128)),
+                (128, 32, 0.4, 64, (64, 64, 128)),
+                (128, 32, 0.8, 64, (128, 128, 256)),
+                (128, 32, 1.6, 128, (128, 128, 256)),
+                (512, 128, 0.2, 64, (64, 64, 128)),
+                (128, 32, 0.4, 64, (128, 128, 256))]
+
+
+def _rel(got, ref):
+    """Norm-wise relative error of an f32 sum against the twin's."""
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+BWD_SUMS = ("sdy", "sdyx", "dw", "db")
+
+
+def _assert_bwd_sums(got, ref, args):
+    """K8's and K9's four sums within 1e-4 of the sums of their terms'
+    magnitudes: the order of an f32 sum over up to 2 M rows, and the few
+    dy_j values the two products round one bf16 step apart. Not relative
+    to the sums themselves: db_j is zero in exact arithmetic in train
+    mode."""
+    mags = fused_sa.sa_bwd_sum_magnitudes(*args)
+    for name, a, b_, mag in zip(BWD_SUMS, got, ref, mags):
+        assert a.shape == b_.shape, name
+        excess = float(((a - b_).abs() / (1e-4 * mag + 1e-30)).max())
+        assert excess <= 1.0, (name, excess)
+
+
+def _close_bf16(got, ref, share=0.99):
+    g, r = got.float(), ref.float()
+    assert (r != 0).float().mean() >= 0.05
+    assert (g == r).float().mean() >= share
+    assert (g - r).abs().max() <= 0.01 * r.abs().max()
+
+
+def _train_case(n, s, k, dims, seed, dev, b=4):
+    g = torch.Generator().manual_seed(seed)
+    xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
+    cent = xyz[:, :s].clone()
+    cent[:, ::7] += 100.0  # empty balls
+    pf = torch.randn(b, n, dims[0], generator=g).to(dev).bfloat16()
+    qc = torch.randn(b, s, dims[0], generator=g).to(dev).bfloat16()
+    _, ws, bs = _chain(g, dims, dev)
+    gammas = [(torch.rand(f, generator=g) + 0.5).to(dev) for f in dims]
+    gammas[-1][::5] *= -1.0  # channels whose pooled value comes from zmin
+    betas = [(torch.randn(f, generator=g) * 0.2).to(dev) for f in dims]
+    return g, cent, xyz, pf, qc, gammas, betas, ws, bs
+
+
+@pytest.mark.parametrize("n,s,r,k,dims", TRAIN_SCALES)
+def test_sa_train_kernels_equal_plain(n, s, r, k, dims):
+    """K5-K9 against their plain twins, each on the twin's inputs, in the
+    order of one training step at depth 3; then K9 at the top (depth 2)
+    and the eval forms."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g, cent, xyz, pf, qc, gammas, betas, ws, bs = _train_case(
+        n, s, k, dims, n + s + k + sum(dims), dev)
+    fs = fused_sa
+    m = cent.shape[0] * s * k
+    before = dict(_build.LAUNCHES)
+
+    def pack(d, sums, sumsq, **kw):
+        mu = sums / m
+        return fs._make_pack(gammas[d], betas[d], mu, sumsq / m - mu * mu,
+                             1e-3, **kw)
+
+    # K5
+    z0, s0, q0 = fs.sa_extract_plain(cent, xyz, pf, qc, r, k)
+    got = fs.sa_extract(cent, xyz, pf, qc, r, k)
+    assert torch.equal(got[0], z0)
+    assert _rel(got[1], s0) <= 1e-4 and _rel(got[2], q0) <= 1e-4
+    again = fs.sa_extract(cent, xyz, pf, qc, r, k)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    p0 = pack(0, s0, q0)
+    # K6
+    z1, s1, q1 = fs.sa_fwd_step_plain(z0, p0, ws[0], bs[0])
+    got = fs.sa_fwd_step(z0, p0, ws[0], bs[0])
+    _close_bf16(got[0], z1)
+    assert _rel(got[1], s1) <= 1e-4 and _rel(got[2], q1) <= 1e-4
+    p1 = pack(1, s1, q1)
+    # K7
+    z2, s2, q2, zmax, zmin = fs.sa_fwd_step_plain(z1, p1, ws[1], bs[1], True)
+    got = fs.sa_fwd_step(z1, p1, ws[1], bs[1], True)
+    _close_bf16(got[0], z2)
+    assert _rel(got[1], s2) <= 1e-4 and _rel(got[2], q2) <= 1e-4
+    assert torch.equal(got[3], got[0].float().amax(dim=2))
+    assert torch.equal(got[4], got[0].float().amin(dim=2))
+    assert (got[3] == zmax).float().mean() >= 0.99
+    p2 = pack(2, s2, q2, mdy=torch.randn(dims[2], generator=g).to(dev) * 1e-3,
+              mdyx=torch.randn(dims[2], generator=g).to(dev) * 1e-3)
+    pooled = fs._pool_epilogue(zmax, zmin, p2)
+    dpooled = torch.randn(pooled.shape, generator=g).to(dev).bfloat16()
+    # K8 at the top
+    for train in (True, False):
+        ref = fs.sa_bwd_step_plain(train, True, z1, z2, (pooled, dpooled),
+                                   p1, p2, ws[1])
+        got = fs.sa_bwd_step(train, True, z1, z2, (pooled, dpooled), p1, p2,
+                             ws[1])
+        _close_bf16(got[0], ref[0])
+        _assert_bwd_sums(got[1:], ref[1:], (train, True, z1, z2,
+                                            (pooled, dpooled), p1, p2, ws[1]))
+        again = fs.sa_bwd_step(train, True, z1, z2, (pooled, dpooled), p1,
+                               p2, ws[1])
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        if train:
+            dy1, sdy1, sdyx1 = ref[:3]
+    p1b = pack(1, s1, q1, mdy=sdy1 / m, mdyx=sdyx1 / m)
+    # K9 below a stored dy, and at the top of a depth-2 chain
+    cases = [(True, False, z0, z1, dy1, p0, p1b, ws[0]),
+             (False, False, z0, z1, dy1, p0, p1b, ws[0]),
+             (True, True, z1, z2, (pooled, dpooled), p1, p2, ws[1]),
+             (False, True, z1, z2, (pooled, dpooled), p1, p2, ws[1])]
+    for train, top, zj, zj1, dy_src, pj, pj1, w in cases:
+        f_j = zj.shape[-1]
+        qcj = torch.randn(cent.shape[0], s, f_j, generator=g).to(
+            dev).bfloat16()
+        ref = fs.sa_bwd_step0_plain(train, top, zj, zj1, dy_src, cent, xyz,
+                                    qcj, pj, pj1, w, r)
+        got = fs.sa_bwd_step0(train, top, zj, zj1, dy_src, cent, xyz, qcj,
+                              pj, pj1, w, r)
+        _assert_bwd_sums(got[:4], ref[:4],
+                         (train, top, zj, zj1, dy_src, pj, pj1, w))
+        h_acc, mq, cnt, sdy_s, sz_s = got[4:]
+        assert torch.equal(cnt, ref[6])
+        # dy_0 never leaves the kernel. Its scattered sum may differ from
+        # the twin's by one bf16 step (2^-7 relative) of every slot (the
+        # roundings of dh one step apart; the repeats of a short ball's
+        # member move together), and by the f32 sum order inside dh's
+        # product: 1e-5 of the sum of that product's terms' magnitudes,
+        # which matters where the terms cancel.
+        dz = fs._step_dz_plain(train, top, zj1, dy_src, pj1)
+        dy0 = fs.sa_bwd_step_plain(train, top, zj, zj1, dy_src, pj, pj1, w)[0]
+        mag = torch.matmul(dz.float().abs(), w.bfloat16().float().abs().t())
+        idx, _ = fs._slots(cent, xyz, r, k)
+        scale = grouping.scatter_rows(idx, dy0.abs(), n, torch.float32)
+        bound = scale / 128 + 1e-30 + 1e-5 * grouping.scatter_rows(
+            idx, mag, n, torch.float32)
+        excess = ((h_acc - ref[4]).abs() / bound).max()
+        assert float(excess) <= 1.0, (train, top, float(excess))
+        assert _rel(mq, ref[5]) <= 1e-5
+        assert _rel(sdy_s, ref[7]) <= 1e-2 and _rel(sz_s, ref[8]) <= 1e-5
+        again = fs.sa_bwd_step0(train, top, zj, zj1, dy_src, cent, xyz, qcj,
+                                pj, pj1, w, r)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got[:4], again[:4]))
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES
+    assert after["sa_extract"] == before["sa_extract"] + 2
+    assert after["sa_fwd_step"] == before["sa_fwd_step"] + 1
+    assert after["sa_fwd_last"] == before["sa_fwd_last"] + 1
+    assert after["sa_bwd_step"] == before["sa_bwd_step"] + 4
+    assert after["sa_bwd_step0"] == before["sa_bwd_step0"] + 8
+
+
+@pytest.mark.parametrize("n,s,r,k,dims", TRAIN_SCALES[2:5])
+def test_sa_train_kernels_exact_on_integers(n, s, r, k, dims):
+    """Integer-valued inputs, identity packs and weights in {-1, 0, 1}
+    make every sum exact in f32 in any order: K5-K9 equal their twins."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g, cent, xyz, *_ = _train_case(n, s, k, dims, 7, dev, b=1)
+    fs = fused_sa
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=g).to(dev)
+
+    b = cent.shape[0]
+    pf = ints(-4, 4, b, n, dims[0]).bfloat16()
+    qc = ints(-2, 2, b, s, dims[0]).bfloat16()
+    packs = [torch.zeros(6, f, device=dev) for f in dims]
+    for p in packs:
+        p[0] = 1.0
+        p[3] = 1.0
+    ws = [(ints(-1, 1, dims[i], dims[i + 1])
+           * (torch.rand(dims[i], dims[i + 1], generator=g) < 0.1).to(dev))
+          .float() for i in range(2)]
+    bs = [ints(-1, 1, dims[i + 1]).float() for i in range(2)]
+    ref0 = fs.sa_extract_plain(cent, xyz, pf, qc, r, k)
+    got0 = fs.sa_extract(cent, xyz, pf, qc, r, k)
+    ref1 = fs.sa_fwd_step_plain(ref0[0], packs[0], ws[0], bs[0])
+    got1 = fs.sa_fwd_step(ref0[0], packs[0], ws[0], bs[0])
+    ref2 = fs.sa_fwd_step_plain(ref1[0], packs[1], ws[1], bs[1], True)
+    got2 = fs.sa_fwd_step(ref1[0], packs[1], ws[1], bs[1], True)
+    dy2 = ints(-1, 1, *ref2[0].shape).bfloat16()
+    ref3 = fs.sa_bwd_step_plain(False, False, ref1[0], ref2[0], dy2,
+                                packs[1], packs[2], ws[1])
+    got3 = fs.sa_bwd_step(False, False, ref1[0], ref2[0], dy2, packs[1],
+                          packs[2], ws[1])
+    ref4 = fs.sa_bwd_step0_plain(False, False, ref0[0], ref1[0], ref3[0],
+                                 cent, xyz, qc, packs[0], packs[1], ws[0], r)
+    got4 = fs.sa_bwd_step0(False, False, ref0[0], ref1[0], ref3[0], cent,
+                           xyz, qc, packs[0], packs[1], ws[0], r)
+    assert float(ref3[0].float().abs().max()) > 0
+    for name, got, ref in (("K5", got0, ref0), ("K6", got1, ref1),
+                           ("K7", got2, ref2), ("K8", got3, ref3),
+                           ("K9", got4, ref4)):
+        for i, (a, b_) in enumerate(zip(got, ref)):
+            assert torch.equal(a, b_), (name, i)
+
+
+def test_fused_chain_on_the_card_matches_the_cpu():
+    """`fused_grouped_chain(train=True)` and its gradients: K5-K9 on the
+    card against the plain twins on the CPU, same inputs."""
+    _need_cuda()
+    n, s, r, k, dims = 256, 32, 0.4, 32, (32, 48, 64)
+    g, cent, xyz, pf, qc, gammas, betas, ws, bs = _train_case(
+        n, s, k, dims, 11, torch.device("cpu"))
+    wr = torch.randn(cent.shape[0], s, dims[-1], generator=g)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in
+                  (pf, qc, *gammas, *betas, *ws, *bs)]
+        d = len(dims)
+        pooled, means, variances = fused_sa.fused_grouped_chain(
+            cent.to(dev), xyz.to(dev), leaves[0], leaves[1],
+            leaves[2:2 + d], leaves[2 + d:2 + 2 * d],
+            leaves[2 + 2 * d:1 + 3 * d], leaves[1 + 3 * d:], r, k, 1e-3,
+            True, None)
+        (pooled.float() * wr.to(dev)).sum().backward()
+        outs.append([pooled, *means, *variances]
+                    + [t.grad for t in leaves])
+    card, cpu = outs
+    _close_bf16(card[0].cpu(), cpu[0], share=0.98)
+    for a, b_ in zip(card[1:1 + 2 * len(dims)], cpu[1:1 + 2 * len(dims)]):
+        torch.testing.assert_close(a.cpu(), b_, atol=2e-3, rtol=0)
+    for a, b_ in zip(card[1 + 2 * len(dims):-2], cpu[1 + 2 * len(dims):-2]):
+        assert _rel(a.float().cpu(), b_.float()) <= 0.05
+
+
+def test_sa_train_kernels_refuse_bad_inputs():
+    _need_cuda()
+    dev = torch.device("cuda")
+    z = torch.zeros(2, 4, 16, 32, device=dev, dtype=torch.bfloat16)
+    pack = torch.zeros(6, 32, device=dev)
+    w, b = torch.zeros(32, 48, device=dev), torch.zeros(48, device=dev)
+    bad = [(z.float(), pack, w, b), (z[:, :, :8], pack, w, b),
+           (z, pack[:5], w, b), (z, pack, w[:, :40].contiguous(), b[:40]),
+           (z.cpu(), pack, w, b), (z, pack, w.t(), b)]
+    for a in bad:
+        with pytest.raises(ValueError):
+            fused_sa.sa_fwd_step_cuda(*a)
+    z1 = torch.zeros(2, 4, 16, 48, device=dev, dtype=torch.bfloat16)
+    pack1 = torch.zeros(6, 48, device=dev)
+    with pytest.raises(ValueError):
+        fused_sa.sa_bwd_step_cuda(True, False, z, z1, z1.float(), pack,
+                                  pack1, w)
+    with pytest.raises(ValueError):
+        fused_sa.sa_extract_cuda(torch.zeros(2, 4, 3, device=dev),
+                                 torch.zeros(2, 64, 3, device=dev),
+                                 torch.zeros(2, 64, 32, device=dev),
+                                 z[:, :, 0].contiguous(), 0.4, 16)

@@ -1,5 +1,5 @@
 """Port parity: fused SA inference (plain twin of kernel K2) and
-GroupedPointMLP.
+GroupedPointMLP in eval mode (training: tests/test_torch_fused_train*.py).
 
 The JAX side runs `fused_grouped_chain(train=False)` with the Pallas
 inference kernel in interpret mode, in both its `rows` and `planar`
@@ -100,14 +100,23 @@ def test_make_pack_matches_jax():
                                atol=1e-7)
 
 
-def test_train_mode_is_not_ported_yet():
+def test_train_mode_returns_batch_statistics():
+    """Train mode runs (tests/test_torch_fused_train.py holds it against
+    the JAX op): it returns the batch's statistics, not the running ones
+    it was given, and the eval call that follows still takes K2's twin."""
     cent, xyz, pf, qc, gammas, betas, ws, bs, running = _setup(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.fused_grouped_chain(
-            t(cent), t(xyz), t(pf).bfloat16(), t(qc).bfloat16(),
+    args = (t(cent), t(xyz), t(pf).bfloat16(), t(qc).bfloat16(),
             [t(g) for g in gammas], [t(b) for b in betas],
-            [t(w) for w in ws], [t(b) for b in bs], R, K, EPS, True,
-            [(t(m), t(v)) for m, v in running])
+            [t(w) for w in ws], [t(b) for b in bs], R, K, EPS)
+    run = [(t(m), t(v)) for m, v in running]
+    pooled, means, variances = tfs.fused_grouped_chain(*args, True, run)
+    assert pooled.dtype == torch.bfloat16
+    assert pooled.shape == (B, S, FEATS[-1])
+    for (m, v), mean, var in zip(running, means, variances):
+        assert np.abs(n(mean) - m).max() > 1e-2 and (n(var) > 0).all()
+    evald, means, _ = tfs.fused_grouped_chain(*args, False, run)
+    np.testing.assert_array_equal(n(means[0]), running[0][0])
+    assert not np.array_equal(n(evald), n(pooled))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

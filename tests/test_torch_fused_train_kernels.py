@@ -1,0 +1,385 @@
+"""Port parity: the plain twins of the fused-SA training kernels K5-K9
+against the Pallas kernels they replace, called directly.
+
+The JAX side runs `_call_extract`, `_call_fwd_step`, `_call_fwd_last`,
+`_call_bwd_step`, `_call_bwd_step0` (rows layout) and their planar twins
+`_call_extract_p`, `_call_fwd_step_cp`, `_call_fwd_pool_ymax_cp`,
+`_call_bwd_step_cp`, `_call_bwd_step0_cp` in interpret mode, at the
+shapes of tests/test_fused_sa.py with the empty, short and overfull
+balls of tests/test_torch_fused_sa.py. The planar layout [B, F, S*K] is
+the rows layout [B, S, K, F] transposed; the test transposes. The port
+has one twin (and one CUDA kernel) for both layouts.
+
+Both sides get the same packs, weights and z tensors (numpy, from a
+seed). Tolerances: bf16 tensors (z, dy) at least 99% bit-identical with
+max |diff| <= 1% of max |value| (the f32 sums inside the products run in
+another order, which can move a bf16 rounding by one step); the slot
+counts exact; and on integer-valued inputs, where every sum is exact in
+any order and no rounding happens, everything exact: that is the tight
+check of every f32 sum. On real-valued inputs the JAX kernels' sums are
+not sums of their own bf16 outputs on the CPU: XLA keeps a value that was
+rounded to bf16 and converted back in f32 ("excess precision"), so the
+kernel sums the unrounded f32 values while it stores the rounded ones
+(K5's z1 is bit-identical and its sums still differ by 8e-4). So the
+real-valued sums are held to bf16's rounding noise: the forward's within
+2e-3 of the reference's norm, the backward's within 2e-3 of the sums of
+their terms' magnitudes (db_j is zero in exact arithmetic in train mode,
+so its own value is no scale).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import n, t
+from transferable3d_tpu.ops import fused_sa as jfs
+from transferable3d_torch.ops import fused_sa as tfs
+
+B, S, N, K, R = 2, 8, 64, 16, 0.9
+FEATS = (16, 24, 40)
+F_MAX = max(FEATS)
+EPS = 1e-3
+LAYOUTS = ["rows", "planar"]
+BF = jnp.bfloat16
+
+
+def _geometry(seed):
+    rng = np.random.RandomState(seed)
+    xyz = rng.uniform(-1.5, 1.5, (B, N, 3)).astype(np.float32)
+    xyz[:, :24] = rng.normal(0, 0.2, (B, 24, 3))
+    cent = rng.uniform(-1.5, 1.5, (B, S, 3)).astype(np.float32)
+    cent[:, 0] = 0.0    # overfull ball
+    cent[:, 1] = 10.0   # empty ball
+    return rng, cent, xyz
+
+
+def _bf(x):
+    """float32 numpy array rounded to bf16 values."""
+    return n(t(x).bfloat16())
+
+
+def _pack(rng, f):
+    g = rng.uniform(0.5, 1.5, f).astype(np.float32)
+    g[::5] *= -1.0  # channels pooled from zmin
+    pack = tfs._make_pack(
+        t(g), t(rng.uniform(-0.3, 0.3, f).astype(np.float32)),
+        t(rng.normal(0, 0.2, f).astype(np.float32)),
+        t(rng.uniform(0.5, 2.0, f).astype(np.float32)), EPS,
+        t(rng.normal(0, 1e-2, f).astype(np.float32)),
+        t(rng.normal(0, 1e-2, f).astype(np.float32)))
+    return n(pack)
+
+
+def _case(seed, integer=False):
+    """Inputs of every pass of one depth-3 chain, as numpy arrays: the z
+    tensors come from the port's own forward twins."""
+    rng, cent, xyz = _geometry(seed)
+    if integer:
+        pf = rng.randint(-4, 5, (B, N, FEATS[0])).astype(np.float32)
+        qc = rng.randint(-2, 3, (B, S, FEATS[0])).astype(np.float32)
+        packs = [np.zeros((6, f), np.float32) for f in FEATS]
+        for p in packs:
+            p[0] = p[3] = 1.0
+        ws = [(rng.randint(-1, 2, (FEATS[i], FEATS[i + 1]))
+               * (rng.rand(FEATS[i], FEATS[i + 1]) < 0.3)).astype(np.float32)
+              for i in range(2)]
+        bs = [rng.randint(-1, 2, FEATS[i + 1]).astype(np.float32)
+              for i in range(2)]
+    else:
+        pf = _bf(rng.uniform(-1, 1, (B, N, FEATS[0])).astype(np.float32))
+        qc = _bf(rng.uniform(-1, 1, (B, S, FEATS[0])).astype(np.float32))
+        packs = [_pack(rng, f) for f in FEATS]
+        ws = [(rng.normal(size=(FEATS[i], FEATS[i + 1])) * 0.3).astype(
+            np.float32) for i in range(2)]
+        bs = [rng.uniform(-0.1, 0.1, FEATS[i + 1]).astype(np.float32)
+              for i in range(2)]
+    z0 = tfs.sa_extract_plain(t(cent), t(xyz), t(pf).bfloat16(),
+                              t(qc).bfloat16(), R, K)[0]
+    z1 = tfs.sa_fwd_step_plain(z0, t(packs[0]), t(ws[0]), t(bs[0]))[0]
+    z2, _, _, zmax, zmin = tfs.sa_fwd_step_plain(z1, t(packs[1]), t(ws[1]),
+                                                 t(bs[1]), True)
+    pooled = tfs._pool_epilogue(zmax, zmin, t(packs[2]))
+    if integer:
+        dpooled = rng.randint(-2, 3, pooled.shape).astype(np.float32) * 4
+        dy2 = rng.randint(-1, 2, z2.shape).astype(np.float32)
+    else:
+        dpooled = _bf(rng.uniform(-1, 1, pooled.shape).astype(np.float32))
+        dy2 = _bf(rng.uniform(-1, 1, z2.shape).astype(np.float32))
+    return dict(cent=cent, xyz=xyz, pf=pf, qc=qc, packs=packs, ws=ws, bs=bs,
+                zs=[n(z0), n(z1), n(z2)], pooled=n(pooled), dpooled=dpooled,
+                dy2=dy2)
+
+
+def _j(x, bf16=False):
+    return jnp.asarray(x).astype(BF) if bf16 else jnp.asarray(x)
+
+
+def _planar(x):
+    """rows [B, S, K, F] (jax) -> planar [B, F, S*K]."""
+    return jnp.swapaxes(x.reshape(B, S * K, x.shape[-1]), 1, 2)
+
+
+def _rows(x):
+    """planar [B, F, S*K] (jax) -> rows [B, S, K, F]."""
+    return jnp.swapaxes(x, 1, 2).reshape(B, S, K, x.shape[1])
+
+
+def _z(x, layout):
+    x = _j(x, bf16=True)
+    return _planar(x) if layout == "planar" else x
+
+
+def _assert_bf16_close(got, ref, exact=False):
+    got, ref = n(got), n(ref)
+    assert got.shape == ref.shape
+    assert (ref != 0).mean() >= 0.05, "comparison would be zeros vs zeros"
+    if exact:
+        np.testing.assert_array_equal(got, ref)
+        return
+    assert (got == ref).mean() >= 0.99
+    assert np.abs(got - ref).max() <= 0.01 * np.abs(ref).max()
+
+
+def _assert_sum_close(got, ref, exact=False, what="", mag=None):
+    got, ref = n(got), np.asarray(ref, np.float32).reshape(n(got).shape)
+    if exact:
+        np.testing.assert_array_equal(got, ref, err_msg=what)
+    elif mag is None:
+        rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+        assert rel <= 2e-3, (what, rel)
+    else:
+        excess = (np.abs(got - ref) / (2e-3 * n(mag) + 1e-30)).max()
+        assert excess <= 1.0, (what, excess)
+
+
+def test_case_has_empty_short_and_overfull_balls():
+    _, cent, xyz = _geometry(0)
+    d2 = ((cent[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+    count = (d2 <= R * R).sum(-1)
+    assert (count == 0).any() and (count > K).any()
+    assert ((count > 0) & (count < K)).any()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("seed,integer", [(0, False), (1, False), (2, True)])
+def test_extract_twin_matches_jax_kernel(layout, seed, integer):
+    """K5 (`_extract_kernel`) and K14 (`_extract_kernel_p`)."""
+    c = _case(seed, integer)
+    args = (_j(c["cent"]), _j(c["xyz"]), _j(c["pf"], True), _j(c["qc"], True),
+            R, K)
+    if layout == "planar":
+        z1, sums, sumsq = jfs._call_extract_p(*args, F_MAX, True)
+        z1 = _rows(z1)
+    else:
+        z1, sums, sumsq = jfs._call_extract(*args, True)
+    got = tfs.sa_extract(t(c["cent"]), t(c["xyz"]), t(c["pf"]).bfloat16(),
+                         t(c["qc"]).bfloat16(), R, K)
+    assert got[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(n(got[0]), n(z1))
+    _assert_sum_close(got[1], sums, integer, "sum")
+    _assert_sum_close(got[2], sumsq, integer, "sumsq")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("integer", [False, True])
+def test_fwd_step_twin_matches_jax_kernel(layout, integer):
+    """K6 (`_fwd_step_kernel`) and K10 (`_fwd_step_kernel_cp`)."""
+    c = _case(3, integer)
+    call = jfs._call_fwd_step_cp if layout == "planar" else jfs._call_fwd_step
+    z, sums, sumsq = call(_z(c["zs"][0], layout), S, K, FEATS[0], FEATS[1],
+                          _j(c["packs"][0]), _j(c["ws"][0]), _j(c["bs"][0]),
+                          F_MAX, True)
+    z = _rows(z) if layout == "planar" else z
+    got = tfs.sa_fwd_step(t(c["zs"][0]).bfloat16(), t(c["packs"][0]),
+                          t(c["ws"][0]), t(c["bs"][0]))
+    assert len(got) == 3 and got[0].dtype == torch.bfloat16
+    _assert_bf16_close(got[0], z, integer)
+    _assert_sum_close(got[1], sums, integer, "sum")
+    _assert_sum_close(got[2], sumsq, integer, "sumsq")
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_fwd_last_twin_matches_jax_kernel(integer):
+    """K7 (`_fwd_last_kernel`), and the pool epilogue on its extrema."""
+    c = _case(4, integer)
+    z, sums, sumsq, zmax, zmin = jfs._call_fwd_last(
+        _z(c["zs"][1], "rows"), S, K, FEATS[1], FEATS[2], _j(c["packs"][1]),
+        _j(c["ws"][1]), _j(c["bs"][1]), F_MAX, True)
+    got = tfs.sa_fwd_step(t(c["zs"][1]).bfloat16(), t(c["packs"][1]),
+                          t(c["ws"][1]), t(c["bs"][1]), last=True)
+    _assert_bf16_close(got[0], z, integer)
+    _assert_sum_close(got[1], sums, integer, "sum")
+    _assert_sum_close(got[2], sumsq, integer, "sumsq")
+    for mine, theirs in ((got[3], zmax), (got[4], zmin)):
+        assert (n(mine) == n(theirs)).mean() >= (1.0 if integer else 0.99)
+    # The extrema are those of the twin's own z'.
+    np.testing.assert_array_equal(n(got[3]), n(got[0]).max(axis=2))
+    np.testing.assert_array_equal(n(got[4]), n(got[0]).min(axis=2))
+    pooled = jfs._pool_epilogue(zmax, zmin, _j(c["packs"][2]))
+    _assert_bf16_close(tfs._pool_epilogue(got[3], got[4], t(c["packs"][2])),
+                       pooled, integer)
+
+
+def test_pool_epilogue_matches_planar_pool_kernel():
+    """K11 (`_fwd_pool_ymax_kernel_cp`): the planar schedule's pool pass
+    against K7's extrema and the pool epilogue."""
+    c = _case(5)
+    pack = c["packs"][2]
+    pooled, ymax = jfs._call_fwd_pool_ymax_cp(
+        _z(c["zs"][2], "planar"), S, K, FEATS[2], _j(pack), F_MAX, True)
+    z2 = t(c["zs"][2])
+    zmax, zmin = z2.amax(dim=2), z2.amin(dim=2)
+    np.testing.assert_array_equal(
+        n(tfs._pool_epilogue(zmax, zmin, t(pack))), n(pooled))
+    a, cc = t(pack[0]), t(pack[1])
+    mine = torch.where(a > 0, a * zmax + cc, a * zmin + cc)
+    np.testing.assert_allclose(n(mine), n(ymax), rtol=1e-6, atol=1e-6)
+
+
+def _dy_src(c, top, layout):
+    if top:
+        return (_j(c["pooled"], True), _j(c["dpooled"], True))
+    return _z(c["dy2"], layout)
+
+
+def _t_dy_src(c, top):
+    if top:
+        return (t(c["pooled"]).bfloat16(), t(c["dpooled"]).bfloat16())
+    return t(c["dy2"]).bfloat16()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("top", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_bwd_step_twin_matches_jax_kernel(layout, top, train):
+    """K8 (`_bwd_step_kernel`) and K12 (`_bwd_step_kernel_cp`), j = 1."""
+    c = _case(6)
+    call = jfs._call_bwd_step_cp if layout == "planar" else jfs._call_bwd_step
+    dy, sdy, sdyx, dw, db = call(
+        train, top, _z(c["zs"][1], layout), _z(c["zs"][2], layout),
+        _dy_src(c, top, layout), S, K, FEATS[1], FEATS[2], _j(c["packs"][1]),
+        _j(c["packs"][2]), _j(c["ws"][1]), F_MAX, True)
+    dy = _rows(dy) if layout == "planar" else dy
+    got = tfs.sa_bwd_step(train, top, t(c["zs"][1]).bfloat16(),
+                          t(c["zs"][2]).bfloat16(), _t_dy_src(c, top),
+                          t(c["packs"][1]), t(c["packs"][2]), t(c["ws"][1]))
+    _assert_bf16_close(got[0], dy)
+    mags = tfs.sa_bwd_sum_magnitudes(
+        train, top, t(c["zs"][1]).bfloat16(), t(c["zs"][2]).bfloat16(),
+        _t_dy_src(c, top), t(c["packs"][1]), t(c["packs"][2]), t(c["ws"][1]))
+    for name, mine, theirs, mag in zip(STEP0_OUTPUTS, got[1:],
+                                       (sdy, sdyx, dw, db), mags):
+        _assert_sum_close(mine, theirs, what=name, mag=mag)
+
+
+def _step0_both(c, layout, train, top, j):
+    """K9 and its JAX kernel at step j of `c` (j = 0 below a stored dy, or
+    j = 1 as the top of a depth-2 chain)."""
+    fj, fj1 = FEATS[j], FEATS[j + 1]
+    rng = np.random.RandomState(11)
+    qc = (c["qc"] if j == 0 else
+          _bf(rng.uniform(-1, 1, (B, S, fj)).astype(np.float32)))
+    if top:
+        jdy, tdy = _dy_src(c, True, layout), _t_dy_src(c, True)
+    else:
+        dy1 = tfs.sa_bwd_step_plain(
+            train, True, t(c["zs"][1]).bfloat16(), t(c["zs"][2]).bfloat16(),
+            _t_dy_src(c, True), t(c["packs"][1]), t(c["packs"][2]),
+            t(c["ws"][1]))[0]
+        jdy, tdy = _z(n(dy1), layout), dy1
+    jargs = (train, top, _z(c["zs"][j], layout), _z(c["zs"][j + 1], layout),
+             jdy, _j(c["cent"]), _j(c["xyz"]), _j(qc, True), S, K, fj, fj1,
+             _j(c["packs"][j]), _j(c["packs"][j + 1]), _j(c["ws"][j]), R)
+    if layout == "planar":
+        ref = jfs._call_bwd_step0_cp(*jargs, F_MAX, True)
+    else:
+        ref = jfs._call_bwd_step0(*jargs, True)
+    got = tfs.sa_bwd_step0(
+        train, top, t(c["zs"][j]).bfloat16(), t(c["zs"][j + 1]).bfloat16(),
+        tdy, t(c["cent"]), t(c["xyz"]), t(qc).bfloat16(), t(c["packs"][j]),
+        t(c["packs"][j + 1]), t(c["ws"][j]), R)
+    mags = tfs.sa_bwd_sum_magnitudes(
+        train, top, t(c["zs"][j]).bfloat16(), t(c["zs"][j + 1]).bfloat16(),
+        tdy, t(c["packs"][j]), t(c["packs"][j + 1]), t(c["ws"][j]))
+    return got, ref, mags
+
+
+STEP0_OUTPUTS = ("sdy", "sdyx", "dw", "db", "H", "Mq", "cnt", "Sdy", "Sz")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("top", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_bwd_step0_twin_matches_jax_kernel(layout, top, train):
+    """K9 (`_bwd_step0_kernel`) and K13 (`_bwd_step0_kernel_cp`)."""
+    got, ref, mags = _step0_both(_case(7), layout, train, top,
+                                 1 if top else 0)
+    assert len(got) == len(ref) == 9
+    mags = (*mags, None, None, None, None, None)
+    for name, mine, theirs, mag in zip(STEP0_OUTPUTS, got, ref, mags):
+        assert tuple(mine.shape) == tuple(
+            np.asarray(theirs).reshape(mine.shape).shape), name
+        if name == "cnt":
+            np.testing.assert_array_equal(n(mine), np.asarray(theirs))
+            assert n(mine).sum() == B * S * K  # every slot has one point
+        else:
+            _assert_sum_close(mine, theirs, what=name, mag=mag)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_backward_twins_exact_on_integers(layout):
+    """Identity packs, weights in {-1, 0, 1} and small-integer data and
+    cotangents: every value is an integer that bf16 and the f32 sums hold
+    exactly, so K8's and K9's twins equal the JAX kernels bit for bit."""
+    c = _case(8, integer=True)
+    call = jfs._call_bwd_step_cp if layout == "planar" else jfs._call_bwd_step
+    ref = call(False, False, _z(c["zs"][1], layout), _z(c["zs"][2], layout),
+               _z(c["dy2"], layout), S, K, FEATS[1], FEATS[2],
+               _j(c["packs"][1]), _j(c["packs"][2]), _j(c["ws"][1]), F_MAX,
+               True)
+    got = tfs.sa_bwd_step(False, False, t(c["zs"][1]).bfloat16(),
+                          t(c["zs"][2]).bfloat16(), t(c["dy2"]).bfloat16(),
+                          t(c["packs"][1]), t(c["packs"][2]), t(c["ws"][1]))
+    dy1 = _rows(ref[0]) if layout == "planar" else ref[0]
+    _assert_bf16_close(got[0], dy1, exact=True)
+    for mine, theirs in zip(got[1:], ref[1:]):
+        _assert_sum_close(mine, theirs, exact=True)
+    jargs = (False, False, _z(c["zs"][0], layout), _z(c["zs"][1], layout),
+             _z(n(got[0]), layout), _j(c["cent"]), _j(c["xyz"]),
+             _j(c["qc"], True), S, K, FEATS[0], FEATS[1], _j(c["packs"][0]),
+             _j(c["packs"][1]), _j(c["ws"][0]), R)
+    ref0 = (jfs._call_bwd_step0_cp(*jargs, F_MAX, True)
+            if layout == "planar" else jfs._call_bwd_step0(*jargs, True))
+    got0 = tfs.sa_bwd_step0(
+        False, False, t(c["zs"][0]).bfloat16(), t(c["zs"][1]).bfloat16(),
+        got[0], t(c["cent"]), t(c["xyz"]), t(c["qc"]).bfloat16(),
+        t(c["packs"][0]), t(c["packs"][1]), t(c["ws"][0]), R)
+    assert float(got0[4].abs().max()) > 0
+    for name, mine, theirs in zip(STEP0_OUTPUTS, got0, ref0):
+        _assert_sum_close(mine, theirs, exact=True, what=name)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    c = _case(0)
+    z0, z1 = t(c["zs"][0]).bfloat16(), t(c["zs"][1]).bfloat16()
+    with pytest.raises(ValueError):
+        tfs.sa_extract_cuda(t(c["cent"]), t(c["xyz"]), t(c["pf"]).bfloat16(),
+                            t(c["qc"]).bfloat16(), R, K)
+    with pytest.raises(ValueError):
+        tfs.sa_fwd_step_cuda(z0, t(c["packs"][0]), t(c["ws"][0]),
+                             t(c["bs"][0]))
+    with pytest.raises(ValueError):
+        tfs.sa_bwd_step_cuda(True, False, z0, z1, z1, t(c["packs"][0]),
+                             t(c["packs"][1]), t(c["ws"][0]))
+    with pytest.raises(ValueError):
+        tfs.sa_bwd_step0_cuda(True, False, z0, z1, z1, t(c["cent"]),
+                              t(c["xyz"]), t(c["qc"]).bfloat16(),
+                              t(c["packs"][0]), t(c["packs"][1]),
+                              t(c["ws"][0]), R)
+
+
+def test_smem_budget_of_the_largest_path_scale():
+    # seg-SA2 scale 3: K=128, F 128 -> 256 (one block of K8/K9, of K6/K7).
+    assert tfs.sa_bwd_smem_bytes(128, 128, 256) < 232448
+    assert tfs.sa_fwd_smem_bytes(128, 128, 256) < 232448

@@ -26,6 +26,24 @@ print(len(names), _build._lib is None, bad)
 """
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the machine with the card, next to the port
+    and nothing else: it names neither JAX nor the JAX package in an
+    import."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "transferable3d_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "orbax",
+                        "transferable3d_tpu"}, names
+
+
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,

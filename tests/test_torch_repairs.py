@@ -3,7 +3,8 @@
 * `T3D_FUSED_SA` is read at call time: "0" sends a bf16 grouped MLP down
   the unfused path (grouped_payload -> BN -> ReLU -> Dense -> max), as
   the JAX module does, without touching the fused twin; "1" in train
-  mode raises and names `T3D_FUSED_SA=0`, never falling back quietly;
+  mode trains on the fused branch (the multi-pass schedule of kernels
+  K5-K9), never on the unfused one;
 * the seg-head dropout draws its keep mask from an explicit
   `torch.Generator` (never the global one), scales kept values by 2,
   and draws through one replaceable function;
@@ -73,12 +74,30 @@ def test_fused_sa_0_takes_the_unfused_branch(train, monkeypatch):
             rtol=2e-2, atol=1e-3)
 
 
-def test_fused_training_raises_and_names_the_variable(monkeypatch):
+def test_fused_sa_1_trains_on_the_fused_branch(monkeypatch):
     monkeypatch.setenv("T3D_FUSED_SA", "1")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the unfused grouping must not run with "
+                             "T3D_FUSED_SA=1")
+
+    monkeypatch.setattr(tpn2, "grouped_payload", refuse)
+    calls = []
+    chain = tfs.fused_grouped_chain
+    monkeypatch.setattr(
+        tfs, "fused_grouped_chain",
+        lambda *a: calls.append(a[11]) or chain(*a))  # a[11]: train
     xyz, feats, new_xyz = _module_inputs(1)
     port = tpn2.GroupedPointMLP(5, FEATS, R, K, dtype=torch.bfloat16).train()
-    with pytest.raises(NotImplementedError, match="T3D_FUSED_SA=0"):
-        port(t(new_xyz), t(xyz), t(feats))
+    before = port.bn_1.mean.clone()
+    out = port(t(new_xyz), t(xyz), t(feats), 0.8)
+    out.float().sum().backward()
+    assert calls == [True]
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, FEATS[-1])
+    assert not torch.equal(port.bn_1.mean, before)
+    for name, p in port.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert float(port.dense_1.weight.grad.abs().max()) > 0
 
 
 def test_dropout_draws_from_the_explicit_generator(monkeypatch):

@@ -118,10 +118,28 @@ def zero_gradient_leaves(paths):
     return out
 
 
+def _set_sa_path(monkeypatch, fused: bool) -> None:
+    """T3D_FUSED_SA for both packages: "0", or unset (the default, the
+    fused set abstraction). The JAX package takes its fused branch only on
+    a TPU, so for `fused` its Pallas passes run in interpret mode and its
+    module is told it is on one, as tests/test_fused_sa.py does."""
+    if not fused:
+        monkeypatch.setenv("T3D_FUSED_SA", "0")
+        return
+    from transferable3d_tpu.models import pointnet2 as jpn2
+    from transferable3d_tpu.ops import fused_sa as jfs
+
+    monkeypatch.delenv("T3D_FUSED_SA", raising=False)
+    monkeypatch.setattr(jfs, "INTERPRET", True)
+    monkeypatch.setattr(jpn2, "on_tpu", lambda: True)
+
+
 def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
-                    nobj=64, mask_margin=0.0, f32_witness=False):
+                    nobj=64, mask_margin=0.0, f32_witness=False,
+                    fused=False, jax_update=True):
     """One `make_train_step` of F-PointNet v2 in JAX and in the port from
-    the same weights, batch and dropout mask, with T3D_FUSED_SA=0.
+    the same weights, batch and dropout mask, with T3D_FUSED_SA=0 or,
+    with `fused`, unset (`_set_sa_path`).
 
     Each frustum is moved to its own mean (|x| of a few meters): XLA
     fuses the expanded-form squared distances (with FMA contraction)
@@ -139,7 +157,11 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
     statistics leaves, the old parameter leaves, the LR, and the inputs
     (`port_train_step`'s) for another port step; with `f32_witness`, also
     the JAX float32 model's gradient on the same step (same weights,
-    batch and keep mask) as `jax_f32_grads`."""
+    batch and keep mask) as `jax_f32_grads`. Without `jax_update` the JAX
+    side stops after the step's forward and backward (one compilation
+    instead of two, which is what the interpret-mode Pallas passes of the
+    fused path cost): `jax_metrics` then holds the total loss only,
+    `jax_stats` the forward's updated statistics, `jax_params` nothing."""
     import jax.numpy as jnp
 
     from transferable3d_tpu.core import bins as jbins
@@ -150,7 +172,7 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
     from transferable3d_tpu.train import schedules as jsched
     from transferable3d_tpu.train import train_loop as jloop
 
-    monkeypatch.setenv("T3D_FUSED_SA", "0")
+    _set_sa_path(monkeypatch, fused)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     cfg = jbins.SUNRGBD
     recs = synthetic.make_dataset(batch_size, cfg, seed=0, n_object=150,
@@ -182,30 +204,38 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
                                cfg, rng))(state.params, state.batch_stats,
                                           jbn(state.step))
 
-    jgrads, (dp_out, dp_in, jmask) = grads_and_dropout(jm)
+    jgrads, (dp_out, dp_in, jmask, jloss, jstats) = grads_and_dropout(jm)
     keep = torch.from_numpy((np.asarray(dp_out, np.float32) != 0)
                             | (np.asarray(dp_in, np.float32) == 0))
     witness = {}
     if f32_witness:
         # The same rng draws the same keep mask at either dtype.
-        g32, (_, _, mask32) = grads_and_dropout(
+        g32, (_, _, mask32, _, _) = grads_and_dropout(
             JV2(cfg=cfg, num_object_point=nobj, dtype=jnp.float32))
         np.testing.assert_array_equal(np.asarray(mask32), np.asarray(jmask))
         witness["jax_f32_grads"] = tree_leaves(to_numpy_tree(g32))
-    # The step donates `state`'s buffers: nothing reads them after it.
-    jstate, jmet = jloop.make_train_step(jm, cfg, tx, jlr, jbn)(state, batch)
-    assert int(jstate.step) == 1
+    if jax_update:
+        # The step donates `state`'s buffers: nothing reads them after it.
+        jstate, jmet = jloop.make_train_step(jm, cfg, tx, jlr, jbn)(state,
+                                                                    batch)
+        assert int(jstate.step) == 1
+        jmet = {k: float(v) for k, v in jmet.items()}
+        jparams = tree_leaves(to_numpy_tree(jstate.params))
+        jstats = jstate.batch_stats
+    else:
+        jmet, jparams = {"total_loss": float(jloss)}, {}
 
     port = port_train_step(dtype, params0, stats0, batch, keep, nobj,
-                           monkeypatch)
+                           monkeypatch, fused=fused)
     np.testing.assert_array_equal(port["mask"], np.asarray(jmask))
     return {
-        "jax_metrics": {k: float(v) for k, v in jmet.items()},
+        "jax_metrics": jmet,
         "jax_grads": tree_leaves(to_numpy_tree(jgrads)),
-        "jax_params": tree_leaves(to_numpy_tree(jstate.params)),
-        "jax_stats": tree_leaves(to_numpy_tree(jstate.batch_stats)),
+        "jax_params": jparams,
+        "jax_stats": tree_leaves(to_numpy_tree(jstats)),
         "old_params": tree_leaves(params0),
         "inputs": (params0, stats0, batch, keep, nobj),
+        "fused": fused,
         **port,
         **witness,
     }
@@ -213,8 +243,9 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
 
 def _grads_and_dropout(module, batch, labels, cfg, rng, params,
                        batch_stats, bn_momentum):
-    """JAX gradient of the v2 total loss, and the seg head's dropout
-    output and input and the predicted mask of the same forward."""
+    """JAX gradient of the v2 total loss, and of the same forward: the seg
+    head's dropout output and input, the predicted mask, the total loss
+    and the updated batch statistics."""
     from transferable3d_tpu.models import model_util as jmu
 
     def loss_fn(p):
@@ -225,16 +256,18 @@ def _grads_and_dropout(module, batch, labels, cfg, rng, params,
             capture_intermediates=lambda mdl, _: mdl.name in (
                 "dp", "head_mlp"))
         seg = upd["intermediates"]["seg_net"]
-        return (jmu.get_loss(ep, labels, cfg)["total_loss"],
+        loss = jmu.get_loss(ep, labels, cfg)["total_loss"]
+        return (loss,
                 (seg["dp"]["__call__"][0], seg["head_mlp"]["__call__"][0],
-                 ep["mask"]))
+                 ep["mask"], loss, upd["batch_stats"]))
     return jax.grad(loss_fn, has_aux=True)(params)
 
 
 def port_train_step(dtype: str, params0, stats0, batch, keep, nobj,
-                    monkeypatch):
+                    monkeypatch, fused=False):
     """One port `make_train_step` of v2 from flax-tree weights, with the
-    dropout keep mask `keep` [B, N, 128] injected. Returns the port's
+    dropout keep mask `keep` [B, N, 128] injected, on the unfused SA path
+    or, with `fused`, the default fused one. Returns the port's
     metrics, gradient, new parameter and statistics leaves, the
     predicted mask and the LR."""
     from transferable3d_torch.core import bins as tbins
@@ -245,7 +278,7 @@ def port_train_step(dtype: str, params0, stats0, batch, keep, nobj,
     from transferable3d_torch.train import train_loop as tloop
     from transferable3d_torch.utils import bridge
 
-    monkeypatch.setenv("T3D_FUSED_SA", "0")
+    _set_sa_path(monkeypatch, fused)
     b = len(batch["points"])
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     model = TV2(tbins.SUNRGBD, num_object_point=nobj, dtype=tdt)

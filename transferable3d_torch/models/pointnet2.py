@@ -9,13 +9,14 @@ module:
 
 so the grouping gathers layer-1 preactivations `pf` and a per-centroid
 correction `qc`. `GroupedPointMLP` then takes the fused branch
-(ops/fused_sa: one CUDA kernel per SA scale on the card) when its dtype
-is bfloat16 and `T3D_FUSED_SA` is "1" (the default), read at call time;
-otherwise the unfused branch: `grouped_payload` (kernels K3/K4 for bf16
-on the card), then BN, ReLU and Dense per layer and the max over K
-(pointnet2.py:146-162; the JAX package additionally requires a TPU for
-the fused branch, the port's runs on any device). The fused branch has
-no training kernels yet, so bf16 training needs `T3D_FUSED_SA=0`.
+(ops/fused_sa: on the card one CUDA kernel per SA scale in inference, K2,
+and the multi-pass kernels K5-K9 in training) when its dtype is bfloat16
+and `T3D_FUSED_SA` is "1" (the default), read at call time; otherwise the
+unfused branch: `grouped_payload` (kernels K3/K4 for bf16 on the card),
+then BN, ReLU and Dense per layer and the max over K (pointnet2.py:146-162;
+the JAX package additionally requires a TPU for the fused branch, the
+port's runs on any device). Both branches hold the same parameters and
+buffers and update the BN running statistics alike.
 Parameter names match the flax tree (`dense_i`, `bn_i`, `mlp`, `mlp_i`).
 """
 
@@ -73,7 +74,7 @@ class GroupedPointMLP(nn.Module):
         qc = dense0(cent_pad) - dense0(torch.zeros_like(cent_pad))
         if (self.dtype == torch.bfloat16
                 and os.environ.get("T3D_FUSED_SA", "1") == "1"):
-            return self._fused(new_xyz, xyz, pf, qc)
+            return self._fused(new_xyz, xyz, pf, qc, bn_momentum)
         grouped_pf, _ = grouped_payload(new_xyz, xyz, pf, self.radius,
                                         self.nsample)  # [B, S, K, F1]
         x = grouped_pf - qc[:, :, None, :]
@@ -83,16 +84,23 @@ class GroupedPointMLP(nn.Module):
             x = torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
         return x.amax(dim=2)  # [B, S, features[-1]]
 
-    def _fused(self, new_xyz, xyz, pf, qc):
+    def _fused(self, new_xyz, xyz, pf, qc, bn_momentum):
         depth = len(self.features)
         bns = [getattr(self, f"bn_{i}") for i in range(depth)]
         dense = [getattr(self, f"dense_{i}") for i in range(1, depth)]
-        pooled, _, _ = fused_sa.fused_grouped_chain(
+        pooled, means, variances = fused_sa.fused_grouped_chain(
             new_xyz, xyz, pf, qc,
             [bn.scale for bn in bns], [bn.bias for bn in bns],
             [d.weight.t() for d in dense], [d.bias for d in dense],
-            self.radius, self.nsample, 1e-3, self.training,
-            [(bn.mean, bn.var) for bn in bns])
+            self.radius, self.nsample, ScheduledBatchNorm.EPSILON,
+            self.training, [(bn.mean, bn.var) for bn in bns])
+        if self.training:
+            # The batch statistics of the fused chain (biased variance),
+            # into the running ones as ScheduledBatchNorm does.
+            with torch.no_grad():
+                for bn, mean, var in zip(bns, means, variances):
+                    bn.mean.mul_(bn_momentum).add_((1.0 - bn_momentum) * mean)
+                    bn.var.mul_(bn_momentum).add_((1.0 - bn_momentum) * var)
         return pooled
 
 

@@ -35,7 +35,9 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
 
-LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0}
+LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
+            "sa_extract": 0, "sa_fwd_step": 0, "sa_fwd_last": 0,
+            "sa_bwd_step": 0, "sa_bwd_step0": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +55,18 @@ _SIGNATURES = {
     "t3d_extract_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # cent, xyz, dg, f32 workspace, dpay, B, S, N, K, C, r2, stream
     "t3d_extract_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # cent, xyz, pf, qc, z1, partials, sums, B, S, N, K, F0, r2, grid,
+    # stream
+    "t3d_sa_extract": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _I, _P],
+    # z_prev, pack, bf16 W, bias, z_next, partials, sums, zmax, zmin,
+    # centroids, K, F_in, F_out, last, grid, stream
+    "t3d_sa_fwd_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _P],
+    # z_j, z_j1, dy_j1, pooled, dpooled, pack_j, pack_j1, bf16 W, cent,
+    # xyz, qc, dy_j, partials, sums, scatter workspace, per-centroid
+    # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, grid, stream
+    "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

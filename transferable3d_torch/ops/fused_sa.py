@@ -1,21 +1,39 @@
-"""Fused set-abstraction inference: CUDA kernel K2 (csrc/sa_infer.cu) +
-plain twin.
+"""Fused set-abstraction chain: CUDA kernels K2 (inference, csrc/sa_infer.cu)
+and K5-K9 (training, csrc/sa_train_fwd.cu and csrc/sa_train_bwd.cu), their
+plain PyTorch twins, and the host schedule with its autograd function.
 
-Port of the eval half of `transferable3d_tpu/ops/fused_sa.py`. One SA
-scale is: ball query around each centroid (direct-form squared
-distance, first K in-radius points by index, cyclic repetition past the
-count, the nearest point for an empty ball), then
-z1 = bf16(pf[sel] - qc), then for each layer
+Port of `transferable3d_tpu/ops/fused_sa.py`. One SA scale is: ball query
+around each centroid (direct-form squared distance, first K in-radius
+points by index, cyclic repetition past the count, the nearest point for
+an empty ball), then z1 = bf16(pf[sel] - qc), then for each layer
 h = relu(bf16(z * a + c)) and, between layers, z' = bf16(h @ bf16(W) + b)
 with float32 accumulation, then the max of the last h over the K slots.
-`a` and `c` come from the f32 [6, F] pack of `_make_pack` built from the
-BN running statistics. Only `pooled` [B, S, F_last] bf16 leaves the
-kernel. The TPU's one-hot MXU selection, lane prefix sums, the `+0.25`
-reciprocal bias and the planar layout are TPU workarounds and are not
-carried over: a gather is exact on the card.
+`a` and `c` come from the f32 [6, F] pack of `_make_pack`. The TPU's
+one-hot MXU selection, lane prefix sums, the `+0.25` reciprocal bias and
+the planar layout are TPU workarounds and are not carried over: a gather
+is exact on the card, and one kernel answers both layouts.
 
-Training (the multi-pass exact-BN forward and its backward kernels)
-is not ported yet: `fused_grouped_chain(train=True)` raises.
+Inference (no gradient, running statistics) is one kernel, K2: only
+`pooled` [B, S, F_last] bf16 leaves it.
+
+Training needs exact batch statistics of every layer before the next
+product can run, so it is the JAX package's cached-z schedule:
+  forward:  K5 extract (z1, sum z1, sum z1^2) -> K6 per middle layer
+            (z_d from z_{d-1}, its sums) -> K7 for the last layer (also
+            the max and min of z over K), then `pooled` from the extrema;
+  backward: the top layer's BN sums from the pool extrema (plain ops),
+            K8 for j = L-2 .. 1 (BN backward of dy_{j+1}, dh through
+            W_j, ReLU mask, writes dy_j; sums dW_j, db_j, sum dy_j,
+            sum dy_j * xhat_j; at the top it redoes the max-pool
+            gradient with ties split equally), K9 for j = 0 (the same
+            without writing dy_0: it scatters dy_0 to its points, with
+            the slot multiplicities), then d_pf and d_qc (plain ops).
+Eval mode under autograd takes the same schedule with packs from the
+running statistics. Gradients to the geometry are zero; the returned
+means and variances carry none. Every whole-grid sum of K5-K9 is
+deterministic (per-block partials added in a fixed order); only K9's
+scatter uses atomics. `torch.autograd.gradcheck` does not apply: the
+chain is bf16 and its rounding is part of the function.
 """
 
 from __future__ import annotations
@@ -27,7 +45,8 @@ import torch
 
 from transferable3d_torch.ops import _build
 from transferable3d_torch.ops.grouping import (direct_sqdist, flat_row_gather,
-                                               radius_sq, select_slots)
+                                               radius_sq, scatter_rows,
+                                               select_slots)
 
 # csrc/sa_infer.cu: threads per block, max chain depth, and the shared
 # memory one block may use on an H100 (227 KB).
@@ -36,15 +55,19 @@ _MAX_DEPTH = 6
 _SMEM_LIMIT = 232448
 
 
-def _make_pack(gamma, beta, mu, var, eps):
+def _make_pack(gamma, beta, mu, var, eps, mdy=None, mdyx=None):
     """f32 [6, F], the JAX pack layout: a = gamma * rsqrt(var + eps),
-    c = beta - mu * a, mu, rsqrt(var + eps), and the two rows the
-    training backward fills (zero here). The kernel reads rows 0-1."""
+    c = beta - mu * a, mu, r = rsqrt(var + eps), and the two rows the
+    training backward fills once layer's own sums are known,
+    mdy = sum(dy) / M and mdyx = sum(dy * xhat) / M (zero until then).
+    So y = z * a + c, xhat = (z - mu) * r, and the train-mode BN backward
+    is dz = a * (dy - mdy - xhat * mdyx)."""
     r = torch.rsqrt(var + eps)
     a = gamma * r
     c = beta - mu * a
     z = torch.zeros_like(a)
-    return torch.stack([a, c, mu, r, z, z]).float()
+    return torch.stack([a, c, mu, r, z if mdy is None else mdy,
+                        z if mdyx is None else mdyx]).float()
 
 
 def sa_infer_plain(cent, xyz, pf, qc, radius: float, nsample: int,
@@ -152,6 +175,525 @@ def sa_infer(cent, xyz, pf, qc, radius: float, nsample: int, packs, ws,
     return sa_infer_cuda(cent, xyz, pf, qc, radius, nsample, packs, ws, bs)
 
 
+# ---------------------------------------------------------------------------
+# Training passes K5-K9: plain twins. Each has the rounding sites of its
+# JAX kernel (`_bf16(...)` in transferable3d_tpu/ops/fused_sa.py) and f32
+# sums everywhere else. z tensors are [B, S, K, F] bf16.
+# ---------------------------------------------------------------------------
+
+_BF = torch.bfloat16
+_ROWS = (0, 1, 2)  # the axes a whole-grid sum runs over
+
+
+def _bn_relu(z, pack):
+    """h = max(bf16(f32(z) * a + c), 0), bf16."""
+    return torch.clamp_min((z.float() * pack[0] + pack[1]).to(_BF), 0)
+
+
+def _slots(cent, xyz, radius: float, nsample: int):
+    d2 = direct_sqdist(cent, xyz)
+    return select_slots(d2 <= radius_sq(radius), d2, nsample)
+
+
+def _stats(z):
+    zf = z.float()
+    return zf.sum(_ROWS), (zf * zf).sum(_ROWS)
+
+
+def sa_extract_plain(cent, xyz, pf, qc, radius: float, nsample: int):
+    """Plain twin of K5 (`_extract_kernel`): z1 = bf16(pf[sel] - qc)
+    [B, S, K, F0] bf16, and sum z1, sum z1^2 per channel, f32 [F0]."""
+    idx, _ = _slots(cent, xyz, radius, nsample)
+    z1 = (flat_row_gather(pf, idx).float()
+          - qc.float()[:, :, None, :]).to(_BF)
+    return (z1, *_stats(z1))
+
+
+def sa_fwd_step_plain(z_prev, pack, w, b, last: bool = False):
+    """Plain twin of K6 (`_fwd_step_kernel`) and, with `last`, of K7
+    (`_fwd_last_kernel`): z' = bf16(relu(BN(z)) @ bf16(W) + b), its sums
+    and, for K7, the max and min of z' over K, f32 [B, S, F_out]."""
+    h = _bn_relu(z_prev, pack)
+    z = (torch.matmul(h.float(), w.to(_BF).float()) + b).to(_BF)
+    out = (z, *_stats(z))
+    if last:
+        zf = z.float()
+        out += (zf.amax(dim=2), zf.amin(dim=2))
+    return out
+
+
+def _step_dz_plain(train: bool, top: bool, z_j1, dy_src, pack_j1):
+    """dz_{j+1} (`_step_dz_rows`): BN backward of dy_{j+1}, which at the
+    top is redone from (pooled, dpooled) with ties split equally
+    (`_top_dy_rows`)."""
+    a1, _, mu1, r1, mdy1, mdyx1 = pack_j1
+    if top:
+        pooled, dpooled = dy_src
+        h1 = _bn_relu(z_j1, pack_j1).float()
+        eq = (h1 == pooled.float()[:, :, None, :]).float()
+        ties = eq.sum(dim=2, keepdim=True).clamp_min(1.0)
+        dh = (dpooled.to(_BF).float()[:, :, None, :] * eq / ties).to(_BF)
+        dy1 = torch.where(h1 > 0, dh, torch.zeros_like(dh))
+    else:
+        dy1 = dy_src
+    if train:
+        xhat1 = (z_j1.float() - mu1) * r1
+        return ((dy1.float() - mdy1 - xhat1 * mdyx1) * a1).to(_BF)
+    return (dy1.float() * a1).to(_BF)
+
+
+def sa_bwd_step_plain(train: bool, top: bool, z_j, z_j1, dy_src, pack_j,
+                      pack_j1, w_j):
+    """Plain twin of K8 (`_bwd_step_kernel`). `dy_src` is dy_{j+1}
+    [B, S, K, F_j1] bf16, or at the top (pooled, dpooled) [B, S, F_j1].
+    Returns (dy_j bf16, sum dy_j, sum dy_j * xhat_j, dW_j, db_j)."""
+    dz1 = _step_dz_plain(train, top, z_j1, dy_src, pack_j1)
+    h_j = _bn_relu(z_j, pack_j)
+    dh = torch.matmul(dz1.float(), w_j.to(_BF).float().t()).to(_BF)
+    dy_j = torch.where(h_j > 0, dh, torch.zeros_like(dh))
+    dyf = dy_j.float()
+    xhat_j = (z_j.float() - pack_j[2]) * pack_j[3]
+    f_j, f_j1 = z_j.shape[-1], z_j1.shape[-1]
+    dw = torch.matmul(h_j.reshape(-1, f_j).float().t(),
+                      dz1.reshape(-1, f_j1).float())
+    return (dy_j, dyf.sum(_ROWS), (dyf * xhat_j).sum(_ROWS), dw,
+            dz1.float().sum(_ROWS))
+
+
+def sa_bwd_sum_magnitudes(train: bool, top: bool, z_j, z_j1, dy_src,
+                          pack_j, pack_j1, w_j):
+    """The sums of the magnitudes of the terms of K8's and K9's four
+    whole-grid sums: (sum |dy_j|, sum |dy_j * xhat_j|, |h_j|^T |dz|,
+    sum |dz|). A sum taken in another order is judged against these, not
+    against its own value: db_j is zero in exact arithmetic in train mode
+    (the batch-statistic identities), and the others cancel in part."""
+    dz1 = _step_dz_plain(train, top, z_j1, dy_src, pack_j1).float().abs()
+    dy_j = sa_bwd_step_plain(train, top, z_j, z_j1, dy_src, pack_j, pack_j1,
+                             w_j)[0].float().abs()
+    xhat_j = ((z_j.float() - pack_j[2]) * pack_j[3]).abs()
+    h_j = _bn_relu(z_j, pack_j).float()
+    dw = torch.matmul(h_j.reshape(-1, h_j.shape[-1]).t(),
+                      dz1.reshape(-1, dz1.shape[-1]))
+    return (dy_j.sum(_ROWS), (dy_j * xhat_j).sum(_ROWS), dw, dz1.sum(_ROWS))
+
+
+def sa_bwd_step0_plain(train: bool, top: bool, z_j, z_j1, dy_src, cent, xyz,
+                       qc, pack_j, pack_j1, w_j, radius: float):
+    """Plain twin of K9 (`_bwd_step0_kernel`): K8 at j = 0 without dy_0;
+    instead H = the slots' dy_0 summed onto their points, cnt = slots per
+    point, Mq = sum over centroids of (slots of the point) * qc, and per
+    centroid sum_k dy_0 and sum_k z_1. Returns (sum dy_0, sum dy_0 *
+    xhat_0, dW_0, db_0, H [B,N,F0], Mq [B,N,F0], cnt [B,1,N],
+    Sdy [B,S,F0], Sz [B,S,F0]), all f32."""
+    dy_j, sdy, sdyx, dw, db = sa_bwd_step_plain(
+        train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j)
+    b, s, k, f0 = z_j.shape
+    n = xyz.shape[1]
+    idx, count = _slots(cent, xyz, radius, k)
+    h_acc = scatter_rows(idx, dy_j, n, torch.float32)
+    # The member with 1-based rank r <= eff fills floor((K - r) / eff) + 1
+    # of the K cyclic slots; its first slot is r - 1.
+    eff = torch.clamp(count, 1, k)[..., None].long()
+    slot = torch.arange(k, device=idx.device)
+    mult = torch.where(slot < eff, (k - 1 - slot) // eff + 1, 0).float()
+    flat = (idx + torch.arange(b, device=idx.device)[:, None, None]
+            * n).reshape(-1)
+    cnt = torch.zeros(b * n, device=idx.device).index_add_(
+        0, flat, mult.reshape(-1))
+    mq = torch.zeros(b * n, f0, device=idx.device).index_add_(
+        0, flat, (mult[..., None] * qc.float()[:, :, None, :])
+        .reshape(-1, f0))
+    return (sdy, sdyx, dw, db, h_acc, mq.reshape(b, n, f0),
+            cnt.reshape(b, 1, n), dy_j.float().sum(dim=2),
+            z_j.float().sum(dim=2))
+
+
+# ---------------------------------------------------------------------------
+# Training passes K5-K9: launchers (csrc/sa_train_fwd.cu, sa_train_bwd.cu).
+# Each kernel runs a fixed grid of blocks that walk their centroids in
+# order and keep partial sums; a second launch adds the partials in block
+# order, so the sums are the same bits run after run.
+# ---------------------------------------------------------------------------
+
+# What the kernels take: K rows of one centroid are one tile of 16-row
+# tensor-core fragments (at most 8), widths are fragment multiples, and the
+# backward keeps dW_j in at most 8 accumulator fragments per warp.
+_TRAIN_MAX_K = 128
+_TRAIN_MAX_F = 256
+_TRAIN_MAX_DW = 32768
+_FWD_THREADS, _BWD_THREADS = 256, 512
+_PAD = 8  # bf16 elements of padding per shared-memory tile row
+
+
+def _need(what: str, dev, specs) -> None:
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    for name, t, dt, shape in specs:
+        if (t.device != dev or t.dtype != dt
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(
+                f"{what}: {name} must be {dt} {tuple(shape)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _need_tile(what: str, k: int, *widths: int) -> None:
+    if k % 16 or not 16 <= k <= _TRAIN_MAX_K:
+        raise ValueError(f"{what}: K={k} must be a multiple of 16 up to "
+                         f"{_TRAIN_MAX_K}")
+    for f in widths:
+        if f % 16 or not 16 <= f <= _TRAIN_MAX_F:
+            raise ValueError(f"{what}: width {f} must be a multiple of 16 "
+                             f"up to {_TRAIN_MAX_F}")
+
+
+def _grid(dev, ncent: int, per_sm: int) -> int:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(ncent, sms * per_sm))
+
+
+def sa_fwd_smem_bytes(k: int, f_in: int, f_out: int) -> int:
+    """Dynamic shared memory of one K6/K7 block (mirrors
+    sa_train_fwd.cu): the h and z' tiles, one 16x16 f32 patch per warp,
+    and the reduction scratch."""
+    return (k * (f_in + _PAD) * 2 + k * (f_out + _PAD) * 2
+            + (_FWD_THREADS // 32) * 1024 + _FWD_THREADS * 4)
+
+
+def sa_bwd_smem_bytes(k: int, f_j: int, f_j1: int) -> int:
+    """Dynamic shared memory of one K8/K9 block (mirrors
+    sa_train_bwd.cu): the dz, h_j and dy_j tiles, the warps' patches,
+    the reduction scratch, the tie counts and the selection."""
+    return (k * (f_j1 + _PAD) * 2 + 2 * k * (f_j + _PAD) * 2
+            + (_BWD_THREADS // 32) * 1024 + _BWD_THREADS * 4 + f_j1 * 4
+            + (k + 3 * (_BWD_THREADS // 32)) * 4)
+
+
+def _need_smem(what: str, smem: int) -> None:
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: needs {smem} B of shared memory "
+                         f"(> {_SMEM_LIMIT})")
+
+
+def sa_extract_cuda(cent, xyz, pf, qc, radius: float, nsample: int):
+    """Launch K5 on the current stream. Raises on anything it does not
+    take; never falls back to the plain twin."""
+    what, dev = "sa_extract_cuda", cent.device
+    if cent.dim() != 3 or xyz.dim() != 3 or pf.dim() != 3:
+        raise ValueError(f"{what}: cent, xyz and pf must be [B, rows, C]")
+    b, s = cent.shape[0], cent.shape[1]
+    n, f0 = xyz.shape[1], pf.shape[-1]
+    _need(what, dev, (("cent", cent, torch.float32, (b, s, 3)),
+                      ("xyz", xyz, torch.float32, (b, n, 3)),
+                      ("pf", pf, _BF, (b, n, f0)),
+                      ("qc", qc, _BF, (b, s, f0))))
+    if (min(b, s, n, nsample) < 1 or nsample > 4096
+            or not 1 <= f0 <= _TRAIN_MAX_F):
+        raise ValueError(f"{what}: unsupported B={b} S={s} N={n} "
+                         f"K={nsample} F0={f0}")
+    lib = _build.library()
+    grid = _grid(dev, b * s, 4)
+    z1 = torch.empty(b, s, nsample, f0, dtype=_BF, device=dev)
+    part = torch.empty(grid, 2, f0, dtype=torch.float32, device=dev)
+    sums = torch.empty(2, f0, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.t3d_sa_extract(
+            cent.data_ptr(), xyz.data_ptr(), pf.data_ptr(), qc.data_ptr(),
+            z1.data_ptr(), part.data_ptr(), sums.data_ptr(), b, s, n,
+            nsample, f0, radius_sq(radius), grid, _build.stream_ptr(dev))
+    _build.check(code, "t3d_sa_extract")
+    _build.LAUNCHES["sa_extract"] += 1
+    return z1, sums[0], sums[1]
+
+
+def sa_fwd_step_cuda(z_prev, pack, w, b, last: bool = False):
+    """Launch K6 or, with `last`, K7 on the current stream. Raises on
+    anything it does not take."""
+    what, dev = "sa_fwd_step_cuda", z_prev.device
+    if z_prev.dim() != 4:
+        raise ValueError(f"{what}: z_prev must be [B, S, K, F_in]")
+    bb, s, k, f_in = z_prev.shape
+    f_out = w.shape[-1]
+    _need(what, dev, (("z_prev", z_prev, _BF, (bb, s, k, f_in)),
+                      ("pack", pack, torch.float32, (6, f_in)),
+                      ("w", w, torch.float32, (f_in, f_out)),
+                      ("b", b, torch.float32, (f_out,))))
+    _need_tile(what, k, f_in, f_out)
+    smem = sa_fwd_smem_bytes(k, f_in, f_out)
+    _need_smem(what, smem)
+    lib = _build.library()
+    grid = _grid(dev, bb * s, 2)
+    wb = w.to(_BF)
+    z_next = torch.empty(bb, s, k, f_out, dtype=_BF, device=dev)
+    part = torch.empty(grid, 2, f_out, dtype=torch.float32, device=dev)
+    sums = torch.empty(2, f_out, dtype=torch.float32, device=dev)
+    ext = (torch.empty(2, bb, s, f_out, dtype=torch.float32, device=dev)
+           if last else None)
+    with torch.cuda.device(dev):
+        code = lib.t3d_sa_fwd_step(
+            z_prev.data_ptr(), pack.data_ptr(), wb.data_ptr(), b.data_ptr(),
+            z_next.data_ptr(), part.data_ptr(), sums.data_ptr(),
+            ext[0].data_ptr() if last else None,
+            ext[1].data_ptr() if last else None, bb * s, k, f_in, f_out,
+            int(last), grid, _build.stream_ptr(dev))
+    _build.check(code, "t3d_sa_fwd_step")
+    _build.LAUNCHES["sa_fwd_last" if last else "sa_fwd_step"] += 1
+    if last:
+        return z_next, sums[0], sums[1], ext[0], ext[1]
+    return z_next, sums[0], sums[1]
+
+
+def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
+                pack_j1, w_j, geo):
+    dev = z_j.device
+    if z_j.dim() != 4 or z_j1.dim() != 4:
+        raise ValueError(f"{what}: z_j and z_j1 must be [B, S, K, F]")
+    b, s, k, f_j = z_j.shape
+    f_j1 = z_j1.shape[-1]
+    specs = [("z_j", z_j, _BF, (b, s, k, f_j)),
+             ("z_j1", z_j1, _BF, (b, s, k, f_j1)),
+             ("pack_j", pack_j, torch.float32, (6, f_j)),
+             ("pack_j1", pack_j1, torch.float32, (6, f_j1)),
+             ("w_j", w_j, torch.float32, (f_j, f_j1))]
+    if top:
+        pooled, dpooled = dy_src
+        specs += [("pooled", pooled, _BF, (b, s, f_j1)),
+                  ("dpooled", dpooled, _BF, (b, s, f_j1))]
+        dy_j1 = None
+    else:
+        pooled = dpooled = None
+        dy_j1 = dy_src
+        specs.append(("dy_j1", dy_j1, _BF, (b, s, k, f_j1)))
+    n = 0
+    if step0:
+        cent, xyz, qc, radius = geo
+        n = xyz.shape[1]
+        specs += [("cent", cent, torch.float32, (b, s, 3)),
+                  ("xyz", xyz, torch.float32, (b, n, 3)),
+                  ("qc", qc, _BF, (b, s, f_j))]
+    _need(what, dev, specs)
+    _need_tile(what, k, f_j, f_j1)
+    if f_j * f_j1 > _TRAIN_MAX_DW:
+        raise ValueError(f"{what}: dW {f_j}x{f_j1} exceeds "
+                         f"{_TRAIN_MAX_DW} entries")
+    if step0 and n < 1:
+        raise ValueError(f"{what}: no points")
+    _need_smem(what, sa_bwd_smem_bytes(k, f_j, f_j1))
+    lib = _build.library()
+    grid = _grid(dev, b * s, 1)
+    wb = w_j.to(_BF)
+    f32 = dict(dtype=torch.float32, device=dev)
+    nsum = f_j * f_j1 + 2 * f_j + f_j1
+    part = torch.empty(grid, nsum, **f32)
+    sums = torch.empty(nsum, **f32)
+    dy_j = None if step0 else torch.empty(b, s, k, f_j, dtype=_BF,
+                                          device=dev)
+    if step0:
+        acc = torch.zeros(b, n, 2 * f_j + 1, **f32)  # H | Mq | cnt
+        per_cent = torch.empty(2, b, s, f_j, **f32)
+        scat = acc.data_ptr()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        code = lib.t3d_sa_bwd_step(
+            z_j.data_ptr(), z_j1.data_ptr(), ptr(dy_j1), ptr(pooled),
+            ptr(dpooled), pack_j.data_ptr(), pack_j1.data_ptr(),
+            wb.data_ptr(),
+            cent.data_ptr() if step0 else None,
+            xyz.data_ptr() if step0 else None,
+            qc.data_ptr() if step0 else None, ptr(dy_j), part.data_ptr(),
+            sums.data_ptr(), scat if step0 else None,
+            per_cent.data_ptr() if step0 else None, b, s, n, k, f_j, f_j1,
+            radius_sq(radius) if step0 else 0.0, int(train), int(top),
+            int(step0), grid, _build.stream_ptr(dev))
+    _build.check(code, "t3d_sa_bwd_step")
+    dw = sums[:f_j * f_j1].reshape(f_j, f_j1)
+    sdy, sdyx, db = sums[f_j * f_j1:].split((f_j, f_j, f_j1))
+    if not step0:
+        return dy_j, sdy, sdyx, dw, db
+    return (sdy, sdyx, dw, db, acc[..., :f_j], acc[..., f_j:2 * f_j],
+            acc[..., 2 * f_j].reshape(b, 1, n), per_cent[0], per_cent[1])
+
+
+def sa_bwd_step_cuda(train: bool, top: bool, z_j, z_j1, dy_src, pack_j,
+                     pack_j1, w_j):
+    """Launch K8 on the current stream. Raises on anything it does not
+    take."""
+    out = _bwd_launch("sa_bwd_step_cuda", False, train, top, z_j, z_j1,
+                      dy_src, pack_j, pack_j1, w_j, None)
+    _build.LAUNCHES["sa_bwd_step"] += 1
+    return out
+
+
+def sa_bwd_step0_cuda(train: bool, top: bool, z_j, z_j1, dy_src, cent, xyz,
+                      qc, pack_j, pack_j1, w_j, radius: float):
+    """Launch K9 on the current stream. Raises on anything it does not
+    take."""
+    out = _bwd_launch("sa_bwd_step0_cuda", True, train, top, z_j, z_j1,
+                      dy_src, pack_j, pack_j1, w_j, (cent, xyz, qc, radius))
+    _build.LAUNCHES["sa_bwd_step0"] += 1
+    return out
+
+
+def _on_cpu(t) -> bool:
+    return t.device.type == "cpu"
+
+
+def sa_extract(cent, xyz, pf, qc, radius, nsample):
+    """K5 on CUDA tensors, its plain twin on CPU tensors."""
+    fn = sa_extract_plain if _on_cpu(cent) else sa_extract_cuda
+    return fn(cent, xyz, pf, qc, radius, nsample)
+
+
+def sa_fwd_step(z_prev, pack, w, b, last=False):
+    """K6/K7 on CUDA tensors, the plain twin on CPU tensors."""
+    fn = sa_fwd_step_plain if _on_cpu(z_prev) else sa_fwd_step_cuda
+    return fn(z_prev, pack, w, b, last)
+
+
+def sa_bwd_step(train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j):
+    """K8 on CUDA tensors, its plain twin on CPU tensors."""
+    fn = sa_bwd_step_plain if _on_cpu(z_j) else sa_bwd_step_cuda
+    return fn(train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j)
+
+
+def sa_bwd_step0(train, top, z_j, z_j1, dy_src, cent, xyz, qc, pack_j,
+                 pack_j1, w_j, radius):
+    """K9 on CUDA tensors, its plain twin on CPU tensors."""
+    fn = sa_bwd_step0_plain if _on_cpu(z_j) else sa_bwd_step0_cuda
+    return fn(train, top, z_j, z_j1, dy_src, cent, xyz, qc, pack_j, pack_j1,
+              w_j, radius)
+
+
+# ---------------------------------------------------------------------------
+# Host schedule and autograd function.
+# ---------------------------------------------------------------------------
+
+
+def _pool_epilogue(zmax, zmin, pack):
+    """pooled from K7's extrema: bf16 rounding and the affine map are
+    monotone per channel, so max_k relu(bf16(a z_k + c)) is
+    relu(bf16(a zmax + c)) for a > 0 and of zmin otherwise. The same a
+    and c as the kernels read, so `h == pooled` in K8 holds bit for bit."""
+    a, c = pack[0], pack[1]
+    ysel = torch.where(a > 0, a * zmax + c, a * zmin + c)
+    return torch.clamp_min(ysel.to(_BF), 0)
+
+
+def _schedule_forward(new_xyz, xyz, pf, qc, gammas, betas, ws, bs, radius,
+                      nsample, eps, train, running):
+    """`_fwd_impl` of the JAX package, rows layout, with residuals."""
+    depth = len(gammas)
+    b, s, _ = new_xyz.shape
+    m = b * s * nsample
+    z, sums, sumsq = sa_extract(new_xyz, xyz, pf, qc, radius, nsample)
+    zs, packs, means, variances = [z], [], [], []
+    zmax = zmin = None
+    for d in range(depth):
+        if train:
+            mu = sums / m
+            var = sumsq / m - mu * mu
+        else:
+            mu, var = running[d]
+        means.append(mu)
+        variances.append(var)
+        packs.append(_make_pack(gammas[d], betas[d], mu, var, eps))
+        if d < depth - 1:
+            out = sa_fwd_step(zs[d], packs[d], ws[d], bs[d],
+                              last=d == depth - 2)
+            z, sums, sumsq = out[:3]
+            zs.append(z)
+            if d == depth - 2:
+                zmax, zmin = out[3:]
+    pooled = _pool_epilogue(zmax, zmin, packs[-1])
+    return pooled, means, variances, zs, packs, zmax, zmin
+
+
+class _FusedChain(torch.autograd.Function):
+    """`fused_grouped_chain` with its custom VJP (`_fgc_fwd`, `_fgc_bwd`).
+    Inputs after `depth`: gammas, betas (depth each), ws, bs (depth - 1
+    each). Outputs: pooled, then in train mode the batch means and
+    variances, marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, new_xyz, xyz, pf, qc, radius, nsample, eps, train,
+                running, depth, *params):
+        gammas, betas = params[:depth], params[depth:2 * depth]
+        ws = [w.contiguous() for w in params[2 * depth:3 * depth - 1]]
+        bs = params[3 * depth - 1:]
+        pooled, means, variances, zs, packs, zmax, zmin = _schedule_forward(
+            new_xyz, xyz, pf, qc, gammas, betas, ws, bs, radius, nsample,
+            eps, train, running)
+        ctx.save_for_backward(new_xyz, xyz, pf, qc, pooled, zmax, zmin,
+                              *zs, *packs, *ws)
+        ctx.radius, ctx.nsample, ctx.train, ctx.depth = (radius, nsample,
+                                                         train, depth)
+        stats = (*means, *variances) if train else ()
+        ctx.mark_non_differentiable(*stats)
+        return (pooled, *stats)
+
+    @staticmethod
+    def backward(ctx, dpooled, *_stats_cotangents):
+        depth, train, k = ctx.depth, ctx.train, ctx.nsample
+        new_xyz, xyz, pf, qc, pooled, zmax, zmin = ctx.saved_tensors[:7]
+        rest = ctx.saved_tensors[7:]
+        zs, packs = rest[:depth], list(rest[depth:2 * depth])
+        ws = rest[2 * depth:]
+        b, s = pooled.shape[:2]
+        m = b * s * k
+        dpooled = dpooled.to(_BF).contiguous()
+        dgammas, dbetas = [None] * depth, [None] * depth
+        dws, dbs = [None] * (depth - 1), [None] * (depth - 1)
+        dy_next = step0 = None
+        for j in range(depth - 1, -1, -1):
+            if j == depth - 1:
+                # The top layer's BN sums from the pool extrema: the whole
+                # pool cotangent goes to the one extremum row (K8's redo
+                # splits it among tied rows; both are subgradients of max).
+                a_l, _, mu_l, r_l = packs[j][:4]
+                zsel = torch.where(a_l > 0, zmax, zmin)
+                dyp = torch.where(pooled.float() > 0, dpooled.float(),
+                                  torch.zeros((), device=pooled.device))
+                sdy = dyp.sum(dim=(0, 1))
+                sdyx = (dyp * ((zsel - mu_l) * r_l)).sum(dim=(0, 1))
+            else:
+                top = j == depth - 2
+                dy_src = (pooled, dpooled) if top else dy_next
+                if j == 0:
+                    step0 = sa_bwd_step0(
+                        train, top, zs[0], zs[1], dy_src, new_xyz, xyz, qc,
+                        packs[0], packs[1], ws[0], ctx.radius)
+                    sdy, sdyx, dws[0], dbs[0] = step0[:4]
+                else:
+                    dy_next, sdy, sdyx, dws[j], dbs[j] = sa_bwd_step(
+                        train, top, zs[j], zs[j + 1], dy_src, packs[j],
+                        packs[j + 1], ws[j])
+            dbetas[j], dgammas[j] = sdy, sdyx
+            if train:  # rows 4-5 must be final before step j - 1 runs
+                packs[j] = packs[j].clone()
+                packs[j][4] = sdy / m
+                packs[j][5] = sdyx / m
+        # d_pf and d_qc from K9's sums (`_bwd_step0_kernel`'s docstring):
+        # onehot^T z1 = cnt * pf - Mq up to z1's stored rounding.
+        h_acc, mq, cnt, sdy_s, sz_s = step0[4:]
+        a0, _, mu0, r0, mdy0, mdyx0 = packs[0]
+        cntv = cnt.transpose(1, 2)  # [B, N, 1]
+        if train:
+            xoh = r0 * (cntv * pf.float() - mq - cntv * mu0)
+            dpf = a0 * (h_acc - cntv * mdy0) - (a0 * mdyx0) * xoh
+            sxhat = r0 * (sz_s - k * mu0)
+            dqc = -(a0 * (sdy_s - k * mdy0 - mdyx0 * sxhat))
+        else:
+            dpf = a0 * h_acc
+            dqc = -(a0 * sdy_s)
+        geo = [torch.zeros_like(t) if need else None for t, need in
+               zip((new_xyz, xyz), ctx.needs_input_grad[:2])]
+        return (*geo, dpf.to(pf.dtype), dqc.to(qc.dtype), None, None, None,
+                None, None, None, *dgammas, *dbetas, *dws, *dbs)
+
+
 def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
                         radius: float, nsample: int, eps: float,
                         train: bool, running
@@ -162,26 +704,36 @@ def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
     the TPU-only `interpret`/`layout`: new_xyz [B,S,3] f32, xyz [B,N,3]
     f32, pf [B,N,F0] bf16 (dense_0 on all points), qc [B,S,F0] bf16
     (dense_0's kernel on the centroids), BN gammas/betas per layer,
-    Dense ws/bs of layers 1..L-1, running ((mean, var), ...).
+    Dense ws/bs of layers 1..L-1, running ((mean, var), ...) for eval.
 
-    Returns (pooled [B,S,F_last] bf16, means, variances).
+    Returns (pooled [B,S,F_last] bf16, means, variances): the batch
+    statistics in train mode, for the caller's running averages, else
+    the running ones. Train mode, and eval mode when a gradient is
+    wanted, take the multi-pass schedule (K5-K9); eval without a
+    gradient takes K2. The geometry gets a zero gradient.
     """
-    if train:
-        raise NotImplementedError(
-            "fused_grouped_chain(train=True): the fused training kernels "
-            "(fused_sa K5-K9) are not ported yet (ROADMAP queue B, B3 "
-            "steps 1-5); train with T3D_FUSED_SA=0, the unfused path")
     depth = len(gammas)
     if depth < 2:
         raise ValueError("fused_grouped_chain requires chain depth >= 2")
     if pf.dtype != torch.bfloat16 or qc.dtype != torch.bfloat16:
         raise ValueError(f"pf and qc must be bfloat16, got {pf.dtype}, "
                          f"{qc.dtype}")
-    packs = [_make_pack(gammas[d], betas[d], running[d][0], running[d][1],
-                        eps) for d in range(depth)]
-    pooled = sa_infer(new_xyz.contiguous(), xyz.contiguous(),
-                      pf.contiguous(), qc.contiguous(), radius, nsample,
-                      packs, [w.contiguous() for w in ws], list(bs))
-    means = tuple(r[0] for r in running)
-    variances = tuple(r[1] for r in running)
-    return pooled, means, variances
+    new_xyz, xyz = new_xyz.contiguous(), xyz.contiguous()
+    pf, qc = pf.contiguous(), qc.contiguous()
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (pf, qc, *gammas, *betas, *ws, *bs))
+    if not train:
+        means = tuple(r[0] for r in running)
+        variances = tuple(r[1] for r in running)
+        if not wants_grad:
+            packs = [_make_pack(gammas[d], betas[d], means[d], variances[d],
+                                eps) for d in range(depth)]
+            pooled = sa_infer(new_xyz, xyz, pf, qc, radius, nsample, packs,
+                              [w.contiguous() for w in ws], list(bs))
+            return pooled, means, variances
+    out = _FusedChain.apply(new_xyz, xyz, pf, qc, radius, nsample, eps,
+                            train, running, depth, *gammas, *betas, *ws,
+                            *bs)
+    if train:
+        means, variances = out[1:1 + depth], out[1 + depth:]
+    return out[0], tuple(means), tuple(variances)
