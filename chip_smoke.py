@@ -3,14 +3,17 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
-Drives `transferable3d_torch` (no JAX anywhere) through F-PointNet v2 at
-the width of the JAX package's bench cells: serving as `v2_infer`
+Drives `transferable3d_torch` (no JAX anywhere) at the width of the JAX
+package's bench cells. F-PointNet v2: serving as `v2_infer`
 (`get_model("frustum_pointnets_v2", SUNRGBD, dtype=bfloat16)` on cuda:0,
 B=128 frustums of N=1024 points with C=4 channels, 512 object points
 after masking) and training as `v2_train`, on the unfused
 set-abstraction path (T3D_FUSED_SA=0) and on the fused one (the default).
-Weights are random from a seeded torch.Generator; the inputs are seeded
-synthetic frustums.
+F-PointNet v1: the end-to-end step `e2e_train` (32 frames of 96x128
+depth with 4 boxes each -> `scene_to_train_batch` on the card -> one
+train step on the 128 frustums it emits), and `v1_infer`/`v1_train` on
+the synthetic frustums. Weights are random from a seeded
+torch.Generator; the inputs are seeded synthetic frustums and scenes.
 
 Serving phases, one line each, under torch.no_grad():
   1. card name and `nvidia-smi` name + power limit;
@@ -80,10 +83,43 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      the first; then the fused step's time and peak memory beside the
      unfused step's from this run, and K5-K9 vs their twins at each of
      the 8 shapes and per step.
+End-to-end phases (F-PointNet v1 in bf16, 3 channels; the scene, the
+model and the batch are built without `device` and must lie on the card):
+ 16. one `scene_to_train_batch` + `make_train_step(StepConfig(
+     compute_iou_metrics=False, use_valid_weights=True))` with the
+     counters zeroed just before it: 1 K15 launch (the fetch is batched
+     over frames and boxes) and none of K1-K9 are required, and K15's
+     arguments are captured; all 128 frustums non-empty and valid; every
+     batch entry, loss term and gradient finite; the foreground share of
+     `seg` strictly between 0 and 1;
+ 17. K15 vs its plain twin, `sampled`, `idx` and `count` identical (a
+     gather: exact), on the captured arguments and on probes: an empty
+     and a 37-point frustum (zeros and idx -1; every point, cyclically);
+     480x640 depth maps (F=4, MB=4) at 1,024 and 2,048 points; a
+     20,000-point cloud with C=4 through `crop_point_frustums`; 1,000
+     points; each with a host check in numpy that shares no code with the
+     port (`idx == flatnonzero(inside)[want - 1]`), and every sampled
+     pixel of the main path inside its 2D box;
+ 18. `scene_to_train_batch` on the card and on the CPU from one scene and
+     one set of phases: idx, count, valid and the classes identical;
+     points and center within 4e-6 (a few ulps at 8 m: sin, cos, atan2
+     and fused multiply-adds), angle 1e-6; `seg` equal except within
+     1e-4 m of a box face, where their number is printed (a depth pixel
+     on the object lies on a face). Then one v1 train step on 8 frustums
+     of that batch, card vs CPU as in phase 10: float32 loss within 2%
+     and cosine >= 0.99; bf16 with the mask pinned at the limits of
+     `V1_COS`, beside two witnesses and three controls;
+ 19. 30 end-to-end steps, each on a fresh draw of the frustums: losses
+     finite, the mean of the last 5 below the first; then the step's
+     time, frustums/s and peak memory, and the share of it that is
+     `scene_to_train_batch`;
+ 20. v1 with C=4 on the synthetic frustums: one train step with the IoU
+     metrics, one predict step and `run_inference` over 4 batches, all
+     finite, no kernel launched; their times.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks. Then a JSON line with the
-nine kernels, and last the JSON ok line. Any failed check exits non-zero
+ten kernels, and last the JSON ok line. Any failed check exits non-zero
 and prints no ok line.
 """
 
@@ -520,10 +556,16 @@ class SmallStep:
     the grid (`_snap_to_grid`), so that the T-Net's bf16 rounding cannot
     change the box net's balls on one side only."""
 
-    def __init__(self, cfg, initial, batch, lr, bn, seed, dev):
+    def __init__(self, cfg, initial, batch, lr, bn, seed, dev,
+                 name="frustum_pointnets_v2", model_kw=None, step_cfg=None):
+        """`name`, `model_kw` and `step_cfg` select the model and the
+        step (default: v2, IoU metrics on)."""
         from transferable3d_torch.models import layers
+        from transferable3d_torch.train import train_loop
 
         self.cfg, self.initial, self.lr, self.bn = cfg, initial, lr, bn
+        self.name, self.model_kw = name, model_kw or {}
+        self.step_cfg = step_cfg or train_loop.StepConfig()
         small = {k: v[:CHECK_B].copy() for k, v in batch.items()}
         mean = small["points"][..., :3].mean(axis=1)
         small["points"][..., :3] = np.round(
@@ -559,16 +601,21 @@ class SmallStep:
         """One step on the frustums in `order` with the keep mask
         `mask_keep` (default `keep`). Returns the loss, the gradients and
         the predicted mask."""
-        from transferable3d_torch.models import registry
+        from transferable3d_torch.models import pointnet2, registry
         from transferable3d_torch.train import train_loop
 
-        m = registry.get_model("frustum_pointnets_v2", self.cfg, dtype=dtype,
-                               device=where)
+        m = registry.get_model(self.name, self.cfg, dtype=dtype,
+                               device=where, **self.model_kw)
         m.load_state_dict(self.initial.state_dict())
         if pin:
             with torch.no_grad():
                 m.seg_net.seg_out.bias[1] += self.margin
-            m.box_net.register_forward_pre_hook(_snap_to_grid)
+            # Only a box net with set abstraction (v2) takes FPS picks
+            # and balls that the snap has to keep apart.
+            if any(isinstance(x, (pointnet2.SetAbstraction,
+                                  pointnet2.SetAbstractionMSG))
+                   for x in m.box_net.modules()):
+                m.box_net.register_forward_pre_hook(_snap_to_grid)
         st = train_loop.create_train_state(
             m, train_loop.make_optimizer(self.lr),
             generator=torch.Generator())
@@ -581,8 +628,8 @@ class SmallStep:
             lambda mod, a, out: seen.update(mask=out["mask"].cpu()))
         try:
             with self._keep_mask(k_):
-                _, met = train_loop.make_train_step(self.cfg, self.lr,
-                                                    self.bn)(st, b_)
+                _, met = train_loop.make_train_step(
+                    self.cfg, self.lr, self.bn, self.step_cfg)(st, b_)
         finally:
             hook.remove()
         mask = seen["mask"]
@@ -1296,6 +1343,363 @@ def _train_fused(args, dev, card: str, ctx):
     return kernels
 
 
+# Phase 18's bf16 limits for F-PointNet v1 (card against CPU, mask
+# pinned): set from the readings in PERF.md as `BF16_COS` is, each failed
+# by one of the phase's controls.
+V1_COS = {"all": 0.8, "seg_net": 0.998, "tnet": 0.7, "box_net": 0.9}
+K15_SOURCE = "transferable3d_torch/csrc/fetch_select.cu"
+K15_REPLACES = "transferable3d_tpu/data/frustum_jit.py:161"
+
+
+def _want_np(u, count, npoints):
+    """The slots' 1-based ranks in numpy float32, op for op
+    (transferable3d_tpu/data/frustum_jit.py:121-125); written out here so
+    that the host check shares no code with the port."""
+    f32 = np.float32
+    npf = f32(npoints)
+    perm = np.random.RandomState(0x53A1).permutation(npoints).astype(f32)
+    u = u.astype(f32)[..., None]
+    c = count.astype(f32)[..., None]
+    slot = perm + np.floor(u * npf)
+    slot = np.where(slot >= npf, slot - npf, slot)
+    want = f32(1.0) + np.floor((slot + u) * c / npf)
+    return np.minimum(want, np.maximum(c, f32(1.0))).astype(np.int64)
+
+
+def e2e(args, dev, card: str, ctx):
+    """Phases 16-20: the end-to-end depth -> frustum -> F-PointNet v1
+    train step (kernel K15), and v1 on the synthetic frustums. Returns
+    K15's JSON entry."""
+    from transferable3d_torch.core import bins, geometry
+    from transferable3d_torch.data import depth_pipeline, frustum_jit
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.ops import _build
+    from transferable3d_torch.train import schedules, train_loop
+    from transferable3d_torch.train import test as test_lib
+
+    # 16. one end-to-end step at bench.py's e2e_train shape
+    cfg = bins.SUNRGBD
+    frames, mb = B // 4, 4
+    scene_np, _ = depth_pipeline.make_depth_scene(
+        np.random.RandomState(args.seed), cfg, n_frames=frames,
+        boxes_per_frame=mb, h=96, w=128)
+    scene = depth_pipeline.scene_to_device(scene_np)  # no device: the card
+    model = registry.get_model(
+        "frustum_pointnets_v1", cfg, dtype=torch.bfloat16, in_channels=3,
+        generator=torch.Generator().manual_seed(args.seed + 4))
+    where = ({t.device for t in scene} | {p.device for p in
+                                          model.parameters()}
+             | {b.device for b in model.buffers()})
+    _check(where == {torch.device("cuda", torch.cuda.current_device())},
+           f"scene or model built without `device` not on the card: {where}")
+    initial = copy.deepcopy(model)
+    lr = schedules.exponential_staircase_lr(batch_size=B)
+    bn = schedules.bn_momentum_schedule(batch_size=B)
+    step_cfg = train_loop.StepConfig(compute_iou_metrics=False,
+                                     use_valid_weights=True)
+    state = train_loop.create_train_state(
+        model, train_loop.make_optimizer(lr), seed=args.seed)
+    step = train_loop.make_train_step(cfg, lr, bn, step_cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+
+    calls = []
+    orig_fetch = frustum_jit.fetch_select_cuda
+
+    def rec_fetch(*a):
+        calls.append(a)
+        return orig_fetch(*a)
+
+    def captured(fn):
+        """The arguments of the one K15 launch that `fn` makes."""
+        del calls[:]
+        frustum_jit.fetch_select_cuda = rec_fetch
+        try:
+            out = fn()
+        finally:
+            frustum_jit.fetch_select_cuda = orig_fetch
+        _check(len(calls) == 1, f"{len(calls)} K15 launches, expected 1")
+        return calls[0], out
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    def first_step():
+        bt = depth_pipeline.scene_to_train_batch(scene, gen, N, cfg)
+        return bt, step(state, bt)[1]
+
+    main_args, (batch, metrics) = captured(first_step)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 16 e2e step (F={frames} frames x MB={mb} boxes, 96x128 "
+          f"depth, {N} points, v1 bf16 C=3): launches {launches}",
+          flush=True)
+    _expect_launches(launches, {"fetch_select": 1})
+    _check(all(v.device.type == "cuda" for v in batch.values()),
+           "a batch tensor left the card")
+    _check(tuple(batch["points"].shape) == (B, N, 3)
+           and bool((batch["count"] > 0).all())
+           and bool(batch["valid"].all()),
+           "an e2e frustum is empty or invalid")
+    _check(all(bool(torch.isfinite(v.float()).all())
+               for v in batch.values()), "a batch entry is not finite")
+    fg = float(batch["seg"].float().mean())
+    vals = {k: float(v) for k, v in metrics.items()}
+    print(f"  counts {int(batch['count'].min())}-"
+          f"{int(batch['count'].max())}, foreground share {fg:.4f}; "
+          + " ".join(f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
+    _check(0.0 < fg < 1.0, "seg labels are all one class")
+    _check(all(math.isfinite(v) for v in vals.values()),
+           "a loss term is not finite")
+    grads = _grads(model)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    _check(not bad, f"non-finite gradients: {bad}")
+    print(f"  gradients: {len(grads)} leaves finite", flush=True)
+
+    # 17. K15 vs its plain twin (a gather: exact) on the captured
+    # arguments and on probes, with a host check in numpy
+    def k15_cost(pts, inside, u, npoints):
+        """Bytes: the mask, the phases and the slot order read once, the
+        outputs written once, and of `pts` only the rows that this run's
+        frustums take (min(count, npoints) distinct rows each)."""
+        f, m = inside.shape[:2]
+        c = pts.shape[-1]
+        out = f * m * (npoints * (c + 1) + 1) * 4
+        rows = int(inside.sum(-1).clamp(max=npoints).sum())
+        return (_nbytes(inside, u) + npoints * 4 + rows * c * 4 + out,
+                float(inside.numel() + 20 * f * m * npoints))
+
+    times = []
+
+    def k15_check(tag, a, time_it=True):
+        pts, inside, u, npoints = a
+        got = frustum_jit.fetch_select_cuda(*a)
+        ref = frustum_jit.fetch_select_plain(*a)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        err = float((got[0] - ref[0]).abs().max())
+        # Host check: slot s holds point flatnonzero(inside)[want_s - 1].
+        idx, cnt = got[1].cpu().numpy(), got[2].cpu().numpy()
+        ins = inside.cpu().numpy()
+        want = _want_np(u.cpu().numpy(), cnt, npoints)
+        host = True
+        for fi, bi in np.ndindex(*cnt.shape):
+            nz = np.flatnonzero(ins[fi, bi])
+            exp = nz[want[fi, bi] - 1] if len(nz) else np.full(npoints, -1)
+            host &= bool(np.array_equal(idx[fi, bi], exp))
+            host &= len(nz) == cnt[fi, bi]
+        gathered = torch.equal(
+            got[0], torch.where((got[1] < 0)[..., None], 0.0, pts[
+                torch.arange(pts.shape[0], device=dev)[:, None, None],
+                got[1].clamp(min=0).long()]))
+        line = (f"phase 17 {tag}: pts {list(pts.shape)} inside "
+                f"{list(inside.shape)} npoints {npoints}, counts "
+                f"{int(cnt.min())}-{int(cnt.max())}: sampled, idx, count "
+                f"identical to the twin {same} (max |diff| of sampled "
+                f"{err:.3g}), idx == host numpy {host}, "
+                f"sampled == pts[idx] {gathered}")
+        if time_it:
+            mk = _time_ms(lambda: frustum_jit.fetch_select_cuda(*a), 3, 20)
+            mp = _time_ms(lambda: frustum_jit.fetch_select_plain(*a), 2, 5)
+            bound = _bound(*k15_cost(*a), PEAK_F32)
+            times.append((mk, mp, bound, err))
+            line += (f"; kernel {mk:.4f} ms, plain {mp:.4f} ms, bound "
+                     f"{bound[0]:.4f} ms by {bound[1]} {card}")
+        print(line, flush=True)
+        _check(same and host and gathered,
+               f"K15 disagrees with its plain twin ({tag})")
+        return got
+
+    k15_check("e2e step", main_args)
+    main_ms, main_plain, main_bound, main_err = times[0]
+    # A zero-area box and a box with fewer points than slots.
+    pts, inside, u, _ = main_args
+    probe = inside.clone()
+    probe[0, 0] = False
+    few = torch.nonzero(probe[0, 1])[:, 0][37:]
+    probe[0, 1, few] = False
+    got = k15_check("empty and short frustums", (pts, probe, u, N), False)
+    _check(bool((got[1][0, 0] == -1).all()) and bool((got[0][0, 0] == 0)
+                                                     .all())
+           and int(got[2][0, 0]) == 0, "an empty frustum is not zeros")
+    _check(int(got[2][0, 1]) == 37 and torch.equal(
+        torch.unique(got[1][0, 1]).long(), torch.nonzero(probe[0, 1])[:, 0]),
+        "a short frustum does not wrap over all of its points")
+    rng = np.random.RandomState(args.seed + 6)
+    k_big = np.array([[520.0, 0, 320.0], [0, 520.0, 240.0], [0, 0, 1]],
+                     np.float32)
+    depth = rng.uniform(0.5, 8.0, (4, 480, 640)).astype(np.float32)
+    depth[rng.rand(4, 480, 640) < 0.1] = 0.0
+    x0, y0 = rng.uniform(0, 400, (4, 4)), rng.uniform(0, 300, (4, 4))
+    boxes = np.stack([x0, y0, x0 + rng.uniform(20, 239.5, (4, 4)),
+                      y0 + rng.uniform(20, 179.5, (4, 4))],
+                     -1).astype(np.float32)
+    for npts in (1024, 2048):
+        a, _ = captured(lambda: frustum_jit.lift_depth_frustums(
+            depth, k_big, boxes, npts, gen))
+        k15_check(f"480x640 depth, npoints {npts}", a)
+    cloud = rng.uniform(-20, 20, (20000, 4)).astype(np.float32)
+    cloud[:, 2] = np.abs(cloud[:, 2]) + 1.0
+    a, out = captured(lambda: frustum_jit.crop_point_frustums(
+        cloud, k_big, boxes[0], N, gen))
+    k15_check("20,000-point cloud, C=4", a)
+    _check(tuple(out.points.shape) == (4, N, 4), "cloud crop shape")
+    a, _ = captured(lambda: frustum_jit.lift_depth_frustums(
+        scene.depth, scene.K, scene.boxes2d, 1000, gen))
+    k15_check("e2e scene, npoints 1000", a)
+    # Every sampled pixel of the main path lies in its 2D box.
+    v_pix, u_pix = np.divmod(batch["idx"].cpu().numpy().reshape(
+        frames, mb, N), 128)
+    b2d = scene_np.boxes2d[:, :, None, :]
+    _check(bool(((u_pix >= b2d[..., 0]) & (u_pix < b2d[..., 2])
+                 & (v_pix >= b2d[..., 1]) & (v_pix < b2d[..., 3])).all()),
+           "a sampled pixel lies outside its 2D box")
+
+    # 18. card vs CPU: the preprocessing from one scene and one set of
+    # phases, then one v1 step on 8 frustums of the card's batch
+    phases = torch.rand(frames, mb,
+                        generator=torch.Generator().manual_seed(args.seed))
+    on_card = depth_pipeline.scene_to_train_batch(scene, phases, N, cfg)
+    on_cpu = depth_pipeline.scene_to_train_batch(scene_np, phases, N, cfg,
+                                                 device="cpu")
+    host = {k: v.cpu() for k, v in on_card.items()}
+    exact = [k for k in ("idx", "count", "valid", "heading_class",
+                         "size_class", "class_idx", "one_hot")
+             if not torch.equal(host[k], on_cpu[k])]
+    diffs = {k: float((host[k] - on_cpu[k]).abs().max())
+             for k in ("points", "center", "frustum_angle",
+                       "heading_residual", "size_residual")}
+    rel = geometry.rotate_points_y(
+        on_cpu["points"] - on_cpu["center"][:, None],
+        -(torch.as_tensor(scene_np.heading).reshape(-1)
+          + on_cpu["frustum_angle"]))
+    half = torch.as_tensor(scene_np.size).reshape(-1, 1, 3)[..., [0, 2, 1]] / 2
+    near = ((rel.abs() - half).abs() < 1e-4).any(-1)
+    seg_off = host["seg"] != on_cpu["seg"]
+    print(f"phase 18 scene_to_train_batch card vs CPU: integer entries that "
+          f"differ {exact or 'none'}; max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+          + f"; seg differs at {int(seg_off.sum())} of {seg_off.numel()} "
+          f"points, {int((seg_off & ~near).sum())} of them farther than "
+          f"1e-4 m from a box face ({int(near.sum())} points are that "
+          f"near)", flush=True)
+    _check(not exact, f"card and CPU batches differ in {exact}")
+    # A few ulps of a coordinate of up to 8 m (sin, cos, atan2 and the
+    # rotation's fused multiply-adds differ in the last place).
+    _check(diffs["points"] <= 4e-6 and diffs["center"] <= 4e-6
+           and diffs["frustum_angle"] <= 1e-6
+           and diffs["heading_residual"] <= 2e-6
+           and diffs["size_residual"] == 0.0,
+           f"card and CPU batches differ: {diffs}")
+    _check(not bool((seg_off & ~near).any()),
+           "seg labels differ away from the box faces")
+
+    small = {k: v.cpu().numpy() for k, v in on_card.items()}
+    one_step = SmallStep(cfg, initial, small, lr, bn, args.seed, dev,
+                         name="frustum_pointnets_v1",
+                         model_kw={"in_channels": 3}, step_cfg=step_cfg)
+    a, b = (one_step(torch.float32, w) for w in ("cuda", "cpu"))
+    _check(torch.equal(a[2], b[2]), "float32 masks differ")
+    res = compare(a, b)
+    show(f"phase 18 v1 step card vs CPU, float32 ({CHECK_B} frustums)", res)
+    _check(res[0] <= 0.02 and res[1]["all"] >= 0.99,
+           "the card's float32 v1 train step disagrees with the CPU's")
+    bf = torch.bfloat16
+    a, b = one_step(bf, "cuda", True), one_step(bf, "cpu", True)
+    _check(torch.equal(a[2], b[2]) and bool(a[2].all()),
+           "bf16 masks differ or are not full")
+    runs = {"card vs CPU": compare(a, b),
+            "witness: card vs card on the batch reversed":
+                compare(a, one_step(bf, "cuda", True, one_step.perm)),
+            "witness: CPU vs CPU on the batch reversed":
+                compare(b, one_step(bf, "cpu", True, one_step.perm))}
+    # Controls: both sides with the mask free to differ; the CPU side
+    # with another dropout mask; the CPU side with every frustum given
+    # its neighbour's box labels.
+    controls = {
+        "control: both sides unpinned": compare(one_step(bf, "cuda"),
+                                                one_step(bf, "cpu")),
+        "control: CPU with another dropout mask": compare(
+            a, one_step(bf, "cpu", True, mask_keep=one_step.other_keep))}
+    labels = ("center", "heading_class", "heading_residual", "size_class",
+              "size_residual")
+    kept = {k: one_step.small[k] for k in labels}
+    one_step.small.update({k: np.roll(v, 1, axis=0)
+                           for k, v in kept.items()})
+    try:
+        controls["control: CPU with its neighbour's box labels"] = compare(
+            a, one_step(bf, "cpu", True))
+    finally:
+        one_step.small.update(kept)
+    judge("phase 18", f"v1 bf16 ({CHECK_B} frustums, foreground margin "
+          f"{one_step.margin:.4g})", V1_COS, runs, controls)
+
+    # 19. 30 end-to-end steps, each on a fresh draw of the frustums
+    def e2e_step():
+        return step(state, depth_pipeline.scene_to_train_batch(
+            scene, gen, N, cfg))[1]
+
+    losses = [float(e2e_step()["total_loss"]) for _ in range(30)]
+    print(f"phase 19 30 e2e steps: first {losses[0]:.5g}, mean of last 5 "
+          f"{np.mean(losses[-5:]):.5g}, all finite "
+          f"{all(map(math.isfinite, losses))}", flush=True)
+    _check(all(map(math.isfinite, losses)), "an e2e loss is not finite")
+    _check(np.mean(losses[-5:]) < losses[0], "the e2e loss did not decrease")
+    torch.cuda.reset_peak_memory_stats(dev)
+    e2e_ms = _time_ms(e2e_step, 2, 10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    prep_ms = _time_ms(lambda: depth_pipeline.scene_to_train_batch(
+        scene, gen, N, cfg), 2, 10)
+    print(f"times e2e step B={B}: {e2e_ms:.3f} ms, "
+          f"{B * 1000.0 / e2e_ms:.1f} frustums/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; scene_to_train_batch alone "
+          f"{prep_ms:.3f} ms = {100 * prep_ms / e2e_ms:.1f}% of the step "
+          f"{card}", flush=True)
+
+    # 20. v1 on the synthetic frustums (C=4): serving and one train step
+    # with the IoU metrics; v1 reaches no kernel
+    v1 = registry.get_model(
+        "frustum_pointnets_v1", cfg, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(args.seed + 7))
+    data = SyntheticFrustums(4 * B, cfg, args.seed)
+    small_batch = data.get_batch(list(range(B)))
+    predict = train_loop.make_predict_step(v1, cfg)
+    v1_state = train_loop.create_train_state(
+        v1, train_loop.make_optimizer(lr), seed=args.seed)
+    v1_step = train_loop.make_train_step(cfg, lr, bn)
+    _build.reset_launch_counts()
+    v1_state, met = v1_step(v1_state, ctx["batch"])
+    with torch.no_grad():
+        out = predict(small_batch)
+        dets = test_lib.run_inference(v1, data, cfg, batch_size=B)
+    torch.cuda.synchronize()
+    _expect_launches(dict(_build.LAUNCHES), {})
+    vals = {k: float(v) for k, v in met.items()}
+    ok = all(np.isfinite(d.center).all() and np.isfinite(d.size).all()
+             and math.isfinite(d.score) and math.isfinite(d.heading)
+             for d in dets)
+    print(f"phase 20 v1 C=4: train step metrics "
+          + " ".join(f"{k} {v:.5g}" for k, v in vals.items())
+          + f"; predict step finite "
+          f"{all(bool(torch.isfinite(v.float()).all()) for v in out.values())}"
+          f"; run_inference {len(dets)} detections finite {ok}", flush=True)
+    _check(all(math.isfinite(v) for v in vals.values())
+           and "iou3d_mean" in vals, "a v1 loss term or metric is not finite")
+    _check(all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+           and len(dets) == 4 * B and ok, "v1 serving output not finite")
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_ms = _time_ms(lambda: v1_step(v1_state, ctx["batch"]), 2, 10)
+    v1_peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        pred_ms = _time_ms(lambda: predict(small_batch), 2, 10)
+    print(f"times v1 B={B} C=4: train step {train_ms:.3f} ms, "
+          f"{B * 1000.0 / train_ms:.1f} frustums/s, peak device memory "
+          f"{v1_peak / 2**30:.2f} GiB; predict step {pred_ms:.3f} ms, "
+          f"{B * 1000.0 / pred_ms:.1f} frustums/s {card}", flush=True)
+
+    return [_entry("fetch_select", K15_SOURCE, K15_REPLACES,
+                   launches["fetch_select"], main_err, main_ms, main_plain,
+                   main_bound)]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1337,6 +1741,7 @@ def main() -> None:
         kernels = serve(args, dev, card)
     unfused_kernels, ctx = train(args, dev, card)
     kernels += unfused_kernels + train_fused(args, dev, card, ctx)
+    kernels += e2e(args, dev, card, ctx)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

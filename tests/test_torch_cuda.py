@@ -12,6 +12,7 @@ chip_smoke.py runs the same comparisons at the full serving shapes.
 import pytest
 import torch
 
+from transferable3d_torch.data import frustum_jit
 from transferable3d_torch.ops import _build, fused_sa, grouping, sampling
 
 pytestmark = pytest.mark.cuda
@@ -418,3 +419,41 @@ def test_sa_train_kernels_refuse_bad_inputs():
                                  torch.zeros(2, 64, 3, device=dev),
                                  torch.zeros(2, 64, 32, device=dev),
                                  z[:, :, 0].contiguous(), 0.4, 16)
+
+
+@pytest.mark.parametrize("f,mb,n,c,npoints", [
+    (3, 4, 12288, 3, 1024), (2, 2, 20000, 4, 1000), (1, 3, 307200, 3, 2048),
+    (2, 5, 100, 3, 64)])
+def test_fetch_select_kernel_equals_plain(f, mb, n, c, npoints):
+    """K15 is a rank search and a gather: identical to its twin, empty
+    and short frustums included."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(f * n + npoints)
+    pts = (torch.rand(f, n, c, generator=g) * 8 - 4).cuda()
+    inside = (torch.rand(f, mb, n, generator=g) < 0.3).cuda()
+    inside[0, 0] = False                       # an empty frustum
+    inside[0, 1, 17:] = False                  # fewer points than slots
+    u = torch.rand(f, mb, generator=g).cuda()
+    u[0, -1] = 0.0
+    before = _build.LAUNCHES["fetch_select"]
+    got = frustum_jit.fetch_select(pts, inside, u, npoints)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fetch_select"] == before + 1
+    ref = frustum_jit.fetch_select_plain(pts, inside, u, npoints)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[1][0, 0] == -1).all() and (got[0][0, 0] == 0).all()
+    assert got[2][0, 0] == 0
+
+
+def test_fetch_select_kernel_refuses_bad_inputs():
+    _need_cuda()
+    pts = torch.zeros(1, 64, 3).cuda()
+    inside = torch.zeros(1, 2, 64, dtype=torch.bool).cuda()
+    u = torch.zeros(1, 2).cuda()
+    for bad in ((pts.cpu(), inside, u),                        # wrong device
+                (pts.transpose(1, 2).contiguous().transpose(1, 2), inside,
+                 u),                                           # strided
+                (pts.double(), inside, u)):                    # wrong type
+        with pytest.raises(ValueError):
+            frustum_jit.fetch_select_cuda(*bad, 16)

@@ -160,8 +160,8 @@ def test_grouped_point_mlp_module(dtype, monkeypatch):
     ref = mod.apply({"params": params, "batch_stats": stats},
                     jnp.asarray(new_xyz), jnp.asarray(xyz), feats_j,
                     train=False, bn_momentum=0.9)
-    port = bridged(tpn2.GroupedPointMLP(5, (16, 24, 32), R, K, dtype=tdt),
-                   params, stats)
+    port = bridged(tpn2.GroupedPointMLP(5, (16, 24, 32), R, K, dtype=tdt,
+                                        device="cpu"), params, stats)
     with torch.no_grad():
         got = port(t(new_xyz), t(xyz), t(feats_j))
     assert got.dtype == tdt
@@ -181,8 +181,8 @@ def test_set_abstraction_group_all_and_msg():
     jx, jf = msg.apply({"params": params, "batch_stats": stats},
                        jnp.asarray(xyz), jnp.asarray(feats), **kw)
     port = bridged(tpn2.SetAbstractionMSG(16, (0.4, 0.9), (8, 16),
-                                          ((8, 8, 16), (8, 12, 16)), 5),
-                   params, stats)
+                                          ((8, 8, 16), (8, 12, 16)), 5,
+                                          device="cpu"), params, stats)
     with torch.no_grad():
         tx, tf = port(t(xyz), t(feats))
     np.testing.assert_array_equal(n(tx), np.asarray(jx))
@@ -192,7 +192,8 @@ def test_set_abstraction_group_all_and_msg():
     params, stats = init_flax(sa, 2, jx, jf, **kw)
     _, jg = sa.apply({"params": params, "batch_stats": stats}, jx, jf, **kw)
     port = bridged(tpn2.SetAbstraction(0, 0.0, 0, (8, 16), 32,
-                                       group_all=True), params, stats)
+                                       group_all=True, device="cpu"),
+                   params, stats)
     with torch.no_grad():
         _, tg = port(tx, tf)
     np.testing.assert_allclose(n(tg), np.asarray(jg), rtol=1e-5, atol=1e-5)
@@ -209,7 +210,8 @@ def test_feature_propagation():
     args = tuple(map(jnp.asarray, (xyz_to, xyz_from, f_to, f_from)))
     params, stats = init_flax(fp, 3, *args, **kw)
     ref = fp.apply({"params": params, "batch_stats": stats}, *args, **kw)
-    port = bridged(tpn2.FeaturePropagation(11, (12, 8)), params, stats)
+    port = bridged(tpn2.FeaturePropagation(11, (12, 8), device="cpu"),
+                   params, stats)
     with torch.no_grad():
         got = port(*map(t, (xyz_to, xyz_from, f_to, f_from)))
     np.testing.assert_allclose(n(got), np.asarray(ref), rtol=1e-5,

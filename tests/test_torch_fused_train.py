@@ -231,7 +231,7 @@ def _flax_module(seed):
 
 def _port_module(params, stats):
     return bridged(tpn2.GroupedPointMLP(5, FEATS, R, K,
-                                        dtype=torch.bfloat16),
+                                        dtype=torch.bfloat16, device="cpu"),
                    params, stats).train()
 
 

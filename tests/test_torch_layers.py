@@ -66,14 +66,16 @@ def test_bridge_maps_every_leaf_once_and_refuses_mismatch():
     params, stats = init_flax(jlayers.PointMLP([8, 6]), 0, jnp.asarray(x),
                               **KW)
     sd = bridge.flax_to_state_dict(params, stats)
-    assert sorted(sd) == sorted(tlayers.PointMLP(5, [8, 6]).state_dict())
+    assert sorted(sd) == sorted(
+        tlayers.PointMLP(5, [8, 6], device="cpu").state_dict())
     np.testing.assert_array_equal(n(sd["dense_0.weight"]),
                                   params["dense_0"]["kernel"].T)
     with pytest.raises(ValueError, match="shape"):
-        bridge.load_flax_variables(tlayers.PointMLP(4, [8, 6]), params, stats)
+        bridge.load_flax_variables(
+            tlayers.PointMLP(4, [8, 6], device="cpu"), params, stats)
     with pytest.raises(ValueError, match="differ"):
-        bridge.load_flax_variables(tlayers.PointMLP(5, [8, 6, 2]), params,
-                                   stats)
+        bridge.load_flax_variables(
+            tlayers.PointMLP(5, [8, 6, 2], device="cpu"), params, stats)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -85,8 +87,8 @@ def test_point_mlp_and_head(dtype):
     params, stats = init_flax(mlp, 1, jnp.asarray(x), **KW)
     ref = mlp.apply({"params": params, "batch_stats": stats},
                     jnp.asarray(x).astype(jdt), **KW)
-    port = bridged(tlayers.PointMLP(6, [16, 8], pool=True, dtype=tdt),
-                   params, stats)
+    port = bridged(tlayers.PointMLP(6, [16, 8], pool=True, dtype=tdt,
+                                    device="cpu"), params, stats)
     with torch.no_grad():
         got = port(t(x).to(tdt))
     assert got.dtype == tdt
@@ -97,7 +99,8 @@ def test_point_mlp_and_head(dtype):
     params, stats = init_flax(head, 2, jnp.asarray(x[:, 0]), **KW)
     ref = head.apply({"params": params, "batch_stats": stats},
                      jnp.asarray(x[:, 0]).astype(jdt), **KW)
-    port = bridged(tlayers.MLPHead(6, [12, 9], 4, dtype=tdt), params, stats)
+    port = bridged(tlayers.MLPHead(6, [12, 9], 4, dtype=tdt, device="cpu"),
+                   params, stats)
     with torch.no_grad():
         got = port(t(x[:, 0]).to(tdt))
     assert got.dtype == torch.float32
@@ -111,7 +114,8 @@ def test_batchnorm_train_mode_and_running_update():
     params, stats = init_flax(bn, 3, jnp.asarray(x), 0.7)
     ref, muts = bn.apply({"params": params, "batch_stats": stats},
                          jnp.asarray(x), 0.7, mutable=["batch_stats"])
-    port = bridged(tlayers.ScheduledBatchNorm(6), params, stats).train()
+    port = bridged(tlayers.ScheduledBatchNorm(6, device="cpu"), params,
+                   stats).train()
     with torch.no_grad():
         got = port(t(x), 0.7)
     np.testing.assert_allclose(n(got), np.asarray(ref), rtol=1e-5, atol=1e-5)
@@ -192,7 +196,7 @@ def test_tnet(dtype):
     params, stats = init_flax(net, 4, jnp.asarray(pts), jnp.asarray(oh), **KW)
     ref = net.apply({"params": params, "batch_stats": stats},
                     jnp.asarray(pts), jnp.asarray(oh), **KW)
-    port = bridged(TTNet(10, dtype=tdt), params, stats)
+    port = bridged(TTNet(10, dtype=tdt, device="cpu"), params, stats)
     with torch.no_grad():
         got = port(t(pts), t(oh))
     tol = 1e-5 if dtype == "float32" else 0.02 * float(np.abs(ref).max())

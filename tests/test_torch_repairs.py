@@ -59,7 +59,8 @@ def test_fused_sa_0_takes_the_unfused_branch(train, monkeypatch):
                          jnp.asarray(new_xyz), jnp.asarray(xyz), feats,
                          train=train, bn_momentum=0.8,
                          mutable=["batch_stats"])
-    port = bridged(tpn2.GroupedPointMLP(5, FEATS, R, K, dtype=torch.bfloat16),
+    port = bridged(tpn2.GroupedPointMLP(5, FEATS, R, K, dtype=torch.bfloat16,
+                                        device="cpu"),
                    params, stats).train(train)
     with torch.no_grad():
         got = port(t(new_xyz), t(xyz), t(feats), 0.8)
@@ -88,7 +89,8 @@ def test_fused_sa_1_trains_on_the_fused_branch(monkeypatch):
         tfs, "fused_grouped_chain",
         lambda *a: calls.append(a[11]) or chain(*a))  # a[11]: train
     xyz, feats, new_xyz = _module_inputs(1)
-    port = tpn2.GroupedPointMLP(5, FEATS, R, K, dtype=torch.bfloat16).train()
+    port = tpn2.GroupedPointMLP(5, FEATS, R, K, dtype=torch.bfloat16,
+                                device="cpu").train()
     before = port.bn_1.mean.clone()
     out = port(t(new_xyz), t(xyz), t(feats), 0.8)
     out.float().sum().backward()
@@ -121,7 +123,7 @@ def test_dropout_draws_from_the_explicit_generator(monkeypatch):
 
 def test_train_mode_model_needs_a_generator(monkeypatch):
     monkeypatch.setenv("T3D_FUSED_SA", "0")
-    model = TV2(tbins.SUNRGBD, num_object_point=16).train()
+    model = TV2(tbins.SUNRGBD, num_object_point=16, device="cpu").train()
     rng = np.random.RandomState(0)
     pts = torch.from_numpy(rng.normal(0, 1, (2, 64, 4)).astype(np.float32))
     one_hot = torch.eye(10)[:2]

@@ -41,7 +41,7 @@ def test_v2_bf16_forward(monkeypatch):
     ref = jm.apply({"params": params, "batch_stats": stats},
                    jnp.asarray(points), jnp.asarray(one_hot), train=False)
     tm = bridged(TV2(tbins.SUNRGBD, num_object_point=64,
-                     dtype=torch.bfloat16), params, stats)
+                     dtype=torch.bfloat16, device="cpu"), params, stats)
     with torch.no_grad():
         got = tm(torch.from_numpy(points), torch.from_numpy(one_hot))
     rl, gl = np.asarray(ref["seg_logits"]), n(got["seg_logits"])

@@ -50,7 +50,8 @@ def setup():
     state = collections.namedtuple("State", "params batch_stats")(
         params, stats)
     tm = bridged(registry.get_model("frustum_pointnets_v2", tbins.SUNRGBD,
-                                    num_object_point=NOBJ), params, stats)
+                                    num_object_point=NOBJ, device="cpu"),
+                 params, stats)
     return recs, batch, jm, state, tm
 
 

@@ -76,7 +76,7 @@ def n(x):
 
 
 # ---------------------------------------------------------------------------
-# One v2 train step on both sides (tests/test_torch_train_step*.py)
+# Train steps on both sides (tests/test_torch_train_step*.py)
 # ---------------------------------------------------------------------------
 
 STEP_LOSS_KEYS = ("total_loss", "seg_loss", "center_loss",
@@ -103,14 +103,19 @@ def tree_leaves(tree, prefix=""):
 # alike (where the ReLU passes), and that BN removes such a shift.
 GLOBAL_POOL_BN_BIASES = ("seg_net/sa3/mlp/bn_2/bias",
                          "box_net/sa3/mlp/bn_2/bias", "tnet/mlp/bn_2/bias")
+# v1's factored concat-Dense: `mlp3_point`'s bias feeds `mlp3_bn`.
+_OTHER_PRE_BN_BIASES = ("seg_net/mlp3_point/bias",)
 
 
-def zero_gradient_leaves(paths):
+def zero_gradient_leaves(paths, pooled=True):
     """Leaves whose train-step gradient is zero (or nearly, for the
     pooled ones) in exact arithmetic, so that both sides hold rounding
     noise: Dense biases that feed a train-mode BatchNorm (the batch mean
-    removes the bias) and `GLOBAL_POOL_BN_BIASES`."""
-    out = [p for p in GLOBAL_POOL_BN_BIASES if p in paths]
+    removes the bias) and, with `pooled`, `GLOBAL_POOL_BN_BIASES`. (The
+    pooled ones are near zero only while every frustum's pooled feature
+    passes its ReLU: not on a batch with all-zero padded frustums.)"""
+    out = [p for p in (GLOBAL_POOL_BN_BIASES if pooled else ())
+           + _OTHER_PRE_BN_BIASES if p in paths]
     for p in paths:
         m = _PRE_BN_BIAS.match(p)
         if m and f"{m.group(1)}/bn_{m.group(3)}/scale" in paths:
@@ -134,46 +139,29 @@ def _set_sa_path(monkeypatch, fused: bool) -> None:
     monkeypatch.setattr(jpn2, "on_tpu", lambda: True)
 
 
-def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
-                    nobj=64, mask_margin=0.0, f32_witness=False,
-                    fused=False, jax_update=True):
-    """One `make_train_step` of F-PointNet v2 in JAX and in the port from
-    the same weights, batch and dropout mask, with T3D_FUSED_SA=0 or,
-    with `fused`, unset (`_set_sa_path`).
+def _family(family: str):
+    """(JAX model class, port model class, name of the seg-net module
+    whose output the dropout takes) of a model family, "v1" or "v2"."""
+    if family == "v2":
+        from transferable3d_tpu.models.frustum_pointnet_v2 import (
+            FrustumPointNetV2 as JModel)
+        from transferable3d_torch.models.frustum_pointnet_v2 import (
+            FrustumPointNetV2 as TModel)
+        return JModel, TModel, "head_mlp"
+    from transferable3d_tpu.models.frustum_pointnet_v1 import (
+        FrustumPointNetV1 as JModel)
+    from transferable3d_torch.models.frustum_pointnet_v1 import (
+        FrustumPointNetV1 as TModel)
+    return JModel, TModel, "mlp3"
 
-    Each frustum is moved to its own mean (|x| of a few meters): XLA
-    fuses the expanded-form squared distances (with FMA contraction)
-    where the port rounds every op, and far from the origin the two can
-    differ by ~1e-5, enough to move a point across a 0.2 m ball's
-    boundary. Near the origin they differ by ~1e-7. `mask_margin` adds
-    that much to the foreground logit's bias, so every point is masked
-    with a margin that bf16 rounding cannot flip (a flipped point would
-    change the box net's input on one side only). The JAX keep mask is
-    read from the step's own forward (rng `fold_in(state.rng,
-    state.step)`): keep where `seg_net/dp`'s output is nonzero or its
-    input is zero.
 
-    Returns a dict: jax/port metrics, gradient leaves, new parameter and
-    statistics leaves, the old parameter leaves, the LR, and the inputs
-    (`port_train_step`'s) for another port step; with `f32_witness`, also
-    the JAX float32 model's gradient on the same step (same weights,
-    batch and keep mask) as `jax_f32_grads`. Without `jax_update` the JAX
-    side stops after the step's forward and backward (one compilation
-    instead of two, which is what the interpret-mode Pallas passes of the
-    fused path cost): `jax_metrics` then holds the total loss only,
-    `jax_stats` the forward's updated statistics, `jax_params` nothing."""
-    import jax.numpy as jnp
-
+def synthetic_step_batch(batch_size=4, npoints=256):
+    """Synthetic frustums for a step test, each moved to its own mean and
+    onto a 1/256 grid (see `run_train_steps`)."""
     from transferable3d_tpu.core import bins as jbins
     from transferable3d_tpu.data import synthetic
     from transferable3d_tpu.data.provider import FrustumDataset
-    from transferable3d_tpu.models.frustum_pointnet_v2 import (
-        FrustumPointNetV2 as JV2)
-    from transferable3d_tpu.train import schedules as jsched
-    from transferable3d_tpu.train import train_loop as jloop
 
-    _set_sa_path(monkeypatch, fused)
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     cfg = jbins.SUNRGBD
     recs = synthetic.make_dataset(batch_size, cfg, seed=0, n_object=150,
                                   n_clutter=80)
@@ -183,7 +171,60 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
     batch["points"][..., :3] = np.round(
         (batch["points"][..., :3] - mean[:, None]) * 256) / 256
     batch["center"] -= mean
-    jm = JV2(cfg=cfg, num_object_point=nobj, dtype=jdt)
+    return batch
+
+
+def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
+                    nobj=64, mask_margin=0.0, f32_witness=False,
+                    fused=False, jax_update=True, family="v2", batch=None,
+                    step_cfg=None, warmup_steps=0):
+    """One `make_train_step` of F-PointNet `family` ("v2" or "v1") in JAX
+    and in the port from the same weights, batch and dropout mask, with
+    T3D_FUSED_SA=0 or, with `fused`, unset (`_set_sa_path`). With
+    `warmup_steps`, the JAX side first takes that many steps alone and
+    the compared step starts from the state they leave (parameters and
+    BN statistics; the port's Adam moments start at zero, so the new
+    parameters are then not comparable).
+
+    Without `batch`, the batch is `synthetic_step_batch`: each frustum
+    moved to its own mean (|x| of a few meters), because XLA fuses the
+    expanded-form squared distances (with FMA contraction) where the
+    port rounds every op, and far from the origin the two can differ by
+    ~1e-5, enough to move a point across a 0.2 m ball's boundary. Near
+    the origin they differ by ~1e-7. `batch` is a dict of numpy arrays
+    for both sides (v1 has no balls and takes any); `step_cfg` holds
+    `StepConfig` fields for both sides. `mask_margin` adds that much to
+    the foreground logit's bias, so every point is masked with a margin
+    that bf16 rounding cannot flip (a flipped point would change the box
+    net's input on one side only). The JAX keep mask is read from the
+    step's own forward (rng `fold_in(state.rng, state.step)`): keep
+    where `seg_net/dp`'s output is nonzero or its input is zero.
+
+    Returns a dict: jax/port metrics, gradient leaves, new parameter and
+    statistics leaves, the old parameter leaves, the LR, and the inputs
+    (`port_train_step`'s) for another port step; with `f32_witness`, also
+    the JAX float32 model's gradient on the same step (same weights,
+    batch and keep mask) as `jax_f32_grads`. Without `jax_update`
+    the JAX side stops after the step's forward and backward (one
+    compilation instead of two, which is what the interpret-mode Pallas
+    passes of the fused path cost): `jax_metrics` then holds the total
+    loss only, `jax_stats` the forward's updated statistics,
+    `jax_params` nothing."""
+    import jax.numpy as jnp
+
+    from transferable3d_tpu.core import bins as jbins
+    from transferable3d_tpu.train import schedules as jsched
+    from transferable3d_tpu.train import train_loop as jloop
+
+    _set_sa_path(monkeypatch, fused)
+    jmodel, _, dp_input = _family(family)
+    step_cfg = dict(step_cfg or {})
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    cfg = jbins.SUNRGBD
+    if batch is None:
+        batch = synthetic_step_batch(batch_size, npoints)
+    batch_size = len(batch["points"])
+    jm = jmodel(cfg=cfg, num_object_point=nobj, dtype=jdt)
     jlr = jsched.exponential_staircase_lr(batch_size=batch_size)
     jbn = jsched.bn_momentum_schedule(batch_size=batch_size)
     tx = jloop.make_optimizer(jlr)
@@ -193,16 +234,23 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
         params["seg_net"]["seg_out"]["bias"][1] += mask_margin
         state = state.replace(params=jax.tree_util.tree_map(jnp.asarray,
                                                             params))
+    jstep = jloop.make_train_step(jm, cfg, tx, jlr, jbn,
+                                  step_cfg=jloop.StepConfig(**step_cfg))
+    for _ in range(warmup_steps):
+        state, _ = jstep(state, batch)
     params0 = to_numpy_tree(state.params)
     stats0 = to_numpy_tree(state.batch_stats)
     rng = jax.random.fold_in(state.rng, state.step)
     labels = jloop.labels_from_batch(
         {k: jnp.asarray(v) for k, v in batch.items()})
+    weights = (jnp.asarray(batch["valid"], jnp.float32)
+               if step_cfg.get("use_valid_weights") else None)
 
     def grads_and_dropout(module):
         return jax.jit(partial(_grads_and_dropout, module, batch, labels,
-                               cfg, rng))(state.params, state.batch_stats,
-                                          jbn(state.step))
+                               weights, cfg, rng, dp_input))(
+                                   state.params, state.batch_stats,
+                                   jbn(state.step))
 
     jgrads, (dp_out, dp_in, jmask, jloss, jstats) = grads_and_dropout(jm)
     keep = torch.from_numpy((np.asarray(dp_out, np.float32) != 0)
@@ -211,14 +259,13 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
     if f32_witness:
         # The same rng draws the same keep mask at either dtype.
         g32, (_, _, mask32, _, _) = grads_and_dropout(
-            JV2(cfg=cfg, num_object_point=nobj, dtype=jnp.float32))
+            jmodel(cfg=cfg, num_object_point=nobj, dtype=jnp.float32))
         np.testing.assert_array_equal(np.asarray(mask32), np.asarray(jmask))
         witness["jax_f32_grads"] = tree_leaves(to_numpy_tree(g32))
     if jax_update:
         # The step donates `state`'s buffers: nothing reads them after it.
-        jstate, jmet = jloop.make_train_step(jm, cfg, tx, jlr, jbn)(state,
-                                                                    batch)
-        assert int(jstate.step) == 1
+        jstate, jmet = jstep(state, batch)
+        assert int(jstate.step) == warmup_steps + 1
         jmet = {k: float(v) for k, v in jmet.items()}
         jparams = tree_leaves(to_numpy_tree(jstate.params))
         jstats = jstate.batch_stats
@@ -226,7 +273,8 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
         jmet, jparams = {"total_loss": float(jloss)}, {}
 
     port = port_train_step(dtype, params0, stats0, batch, keep, nobj,
-                           monkeypatch, fused=fused)
+                           monkeypatch, fused=fused, family=family,
+                           step_cfg=step_cfg, start_step=warmup_steps)
     np.testing.assert_array_equal(port["mask"], np.asarray(jmask))
     return {
         "jax_metrics": jmet,
@@ -241,11 +289,12 @@ def run_train_steps(dtype: str, monkeypatch, batch_size=4, npoints=256,
     }
 
 
-def _grads_and_dropout(module, batch, labels, cfg, rng, params,
-                       batch_stats, bn_momentum):
-    """JAX gradient of the v2 total loss, and of the same forward: the seg
-    head's dropout output and input, the predicted mask, the total loss
-    and the updated batch statistics."""
+def _grads_and_dropout(module, batch, labels, weights, cfg, rng, dp_input,
+                       params, batch_stats, bn_momentum):
+    """JAX gradient of the total loss, and of the same forward: the seg
+    net's dropout output and input (the output of its module `dp_input`),
+    the predicted mask, the total loss and the updated batch
+    statistics."""
     from transferable3d_tpu.models import model_util as jmu
 
     def loss_fn(p):
@@ -254,48 +303,53 @@ def _grads_and_dropout(module, batch, labels, cfg, rng, params,
             batch["one_hot"], train=True, bn_momentum=bn_momentum,
             rngs={"dropout": rng}, mutable=["batch_stats", "intermediates"],
             capture_intermediates=lambda mdl, _: mdl.name in (
-                "dp", "head_mlp"))
+                "dp", dp_input))
         seg = upd["intermediates"]["seg_net"]
-        loss = jmu.get_loss(ep, labels, cfg)["total_loss"]
+        loss = jmu.get_loss(ep, labels, cfg,
+                            example_weights=weights)["total_loss"]
         return (loss,
-                (seg["dp"]["__call__"][0], seg["head_mlp"]["__call__"][0],
+                (seg["dp"]["__call__"][0], seg[dp_input]["__call__"][0],
                  ep["mask"], loss, upd["batch_stats"]))
     return jax.grad(loss_fn, has_aux=True)(params)
 
 
 def port_train_step(dtype: str, params0, stats0, batch, keep, nobj,
-                    monkeypatch, fused=False):
-    """One port `make_train_step` of v2 from flax-tree weights, with the
-    dropout keep mask `keep` [B, N, 128] injected, on the unfused SA path
-    or, with `fused`, the default fused one. Returns the port's
-    metrics, gradient, new parameter and statistics leaves, the
-    predicted mask and the LR."""
+                    monkeypatch, fused=False, family="v2", step_cfg=None,
+                    start_step=0):
+    """One port `make_train_step` of the `family` model from flax-tree
+    weights on the CPU, as step number `start_step`, with the dropout
+    keep mask `keep` [B, N, 128] injected, on the unfused SA path or,
+    with `fused`, the default fused one. Returns the port's metrics,
+    gradient, new parameter and statistics leaves, the predicted mask
+    and the LR."""
     from transferable3d_torch.core import bins as tbins
     from transferable3d_torch.models import layers as tlayers
-    from transferable3d_torch.models.frustum_pointnet_v2 import (
-        FrustumPointNetV2 as TV2)
     from transferable3d_torch.train import schedules as tsched
     from transferable3d_torch.train import train_loop as tloop
     from transferable3d_torch.utils import bridge
 
     _set_sa_path(monkeypatch, fused)
+    _, tmodel, _ = _family(family)
     b = len(batch["points"])
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    model = TV2(tbins.SUNRGBD, num_object_point=nobj, dtype=tdt)
+    model = tmodel(tbins.SUNRGBD, num_object_point=nobj, dtype=tdt,
+                   in_channels=batch["points"].shape[-1], device="cpu")
     bridge.load_flax_variables(model, params0, stats0)
     tlr = tsched.exponential_staircase_lr(batch_size=b)
     tbn = tsched.bn_momentum_schedule(batch_size=b)
     tstate = tloop.create_train_state(model, tloop.make_optimizer(tlr),
                                       generator=torch.Generator())
+    tstate.step = start_step
     monkeypatch.setattr(tlayers, "dropout_keep_mask",
                         lambda shape, rate, gen: keep)
     seen = {}
     hook = model.register_forward_hook(
         lambda mod, args, out: seen.update(mask=out["mask"]))
-    tstate, tmet = tloop.make_train_step(tbins.SUNRGBD, tlr, tbn)(tstate,
-                                                                 batch)
+    tstate, tmet = tloop.make_train_step(
+        tbins.SUNRGBD, tlr, tbn, tloop.StepConfig(**(step_cfg or {})))(
+            tstate, batch)
     hook.remove()
-    assert tstate.step == 1
+    assert tstate.step == start_step + 1
     tparams, tstats = bridge.state_dict_to_flax(model)
     return {
         "port_metrics": {k: float(v) for k, v in tmet.items()},
@@ -307,15 +361,16 @@ def port_train_step(dtype: str, params0, stats0, batch, keep, nobj,
     }
 
 
-def split_noise_grads(res, bound=1e-4):
+def split_noise_grads(res, bound=1e-4, pooled=True, n_noise=None):
     """Check the `zero_gradient_leaves` are rounding noise on both sides
     (<= `bound` times the largest gradient entry; None skips the check)
     and return the other leaves as {path: (jax, port)} plus the noise
-    paths."""
+    paths. There are more than 20 such leaves in v2; another family
+    states its exact number as `n_noise`."""
     jl, tl = res["jax_grads"], res["port_grads"]
     assert sorted(jl) == sorted(tl)
-    noise = zero_gradient_leaves(jl)
-    assert len(noise) > 20
+    noise = zero_gradient_leaves(jl, pooled)
+    assert len(noise) > 20 if n_noise is None else len(noise) == n_noise
     scale = max(np.abs(g).max() for g in jl.values())
     for p in noise if bound is not None else ():
         assert np.abs(jl[p]).max() <= bound * scale, p

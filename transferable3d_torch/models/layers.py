@@ -28,16 +28,15 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-
-def _init_device(device):
-    return torch.device("cpu") if device is None else torch.device(device)
+from transferable3d_torch import resolve_device as _init_device
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense` twin: weight [out, in] lecun-normal, zero bias."""
+    """flax `nn.Dense` twin: weight [out, in] lecun-normal, zero bias
+    (no bias parameter with `use_bias=False`)."""
 
     def __init__(self, in_features: int, features: int, *,
-                 dtype=torch.float32, device=None,
+                 use_bias: bool = True, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -49,12 +48,15 @@ class Dense(nn.Module):
                               generator=generator)
         dev = _init_device(device)
         self.weight = nn.Parameter(w.to(dev))
-        self.bias = nn.Parameter(torch.zeros(features, device=dev))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features, device=dev))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y + self.bias.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class ScheduledBatchNorm(nn.Module):

@@ -1,7 +1,7 @@
 """Model registry: name -> constructor (port of models/registry.py).
 
-Only the v2 model is ported so far; v1, `box_estimation_v1` and
-`boxpc_fit` follow (ROADMAP queue A).
+`boxpc_fit` follows with the transfer loop (ROADMAP queue A). A model
+built without `device` lands on the card (`default_device`).
 """
 
 from __future__ import annotations
@@ -9,17 +9,21 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 from transferable3d_torch.core import bins as bins_lib
+from transferable3d_torch.models.frustum_pointnet_v1 import (
+    BoxEstimationOnly, FrustumPointNetV1)
 from transferable3d_torch.models.frustum_pointnet_v2 import FrustumPointNetV2
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {
+    "frustum_pointnets_v1": FrustumPointNetV1,
     "frustum_pointnets_v2": FrustumPointNetV2,
+    "box_estimation_v1": BoxEstimationOnly,
 }
 
 
 def get_model(name: str, cfg: bins_lib.BinConfig, **kwargs):
     """Construct a model by registry name, e.g.
-    get_model("frustum_pointnets_v2", SUNRGBD, dtype=torch.bfloat16,
-    device="cuda")."""
+    get_model("frustum_pointnets_v2", SUNRGBD, dtype=torch.bfloat16)
+    (on the card) or get_model(..., device="cpu")."""
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown model '{name}'; available: {sorted(_REGISTRY)}")

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles each source under `transferable3d_torch/csrc/` for
-Hopper (`sm_90a`) into an object file, one process per source, all
-started together; one more `nvcc` links the objects into a single shared
+`nvcc` compiles each of the six sources under
+`transferable3d_torch/csrc/` (fps, sa_infer, ball_extract, sa_train_fwd,
+sa_train_bwd, fetch_select: ten kernels) for Hopper (`sm_90a`) into an
+object file, one process per source, all started together; one more `nvcc` links the objects into a single shared
 library with a plain C interface, which is loaded with ctypes. The
 library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
@@ -37,7 +38,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 
 LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
             "sa_extract": 0, "sa_fwd_step": 0, "sa_fwd_last": 0,
-            "sa_bwd_step": 0, "sa_bwd_step0": 0}
+            "sa_bwd_step": 0, "sa_bwd_step0": 0, "fetch_select": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +68,9 @@ _SIGNATURES = {
     # xyz, qc, dy_j, partials, sums, scatter workspace, per-centroid
     # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, grid, stream
     "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # pts, inside (bytes), u, perm, sampled, idx, count, F, MB, N, C,
+    # npoints, stream
+    "t3d_fetch_select": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
