@@ -72,7 +72,10 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      loss term, metric and gradient finite;
  13. each of K5-K9 vs its plain twin on the captured arguments, and the
      chain again with every other centroid moved 100 m away, at the
-     limits `FusedChecks` states; each kernel's sums bit-identical when
+     limits `FusedChecks` states; K8 and K9 also on a cut of each scale
+     whose last tile is ragged (15 frustums, S - 3 centroids), there at
+     the top and below a stored dy, train and eval, and at their smallest
+     tile (K = 16, 16 <- 16); each kernel's sums bit-identical when
      it runs twice; the grouped MLPs' BN running statistics bit-identical
      after one step from two copies of the model;
  14. phase 10's bf16 check with the fused path on the card (kernels) and
@@ -1091,6 +1094,83 @@ class FusedChecks:
         return err, ref
 
 
+def _bwd_edge_probes(check, a8, a9, seed):
+    """K8 and K9 on 15 frustums and S - 3 centroids of one scale's captured
+    arguments: an odd centroid count, so the last tile of a launch holds
+    fewer centroids than the others wherever a tile holds 2, 4 or 8. The
+    step runs K8 at the top and K9 below a stored dy only, both in train
+    mode: here also K8 below a stored dy, K9 at the top (a depth-2 chain)
+    and the eval forms. (Not fewer rows: the four sums are held to 1e-4 of
+    their terms' magnitudes, which over a few hundred rows is less than
+    one dy_j that the two products round one bf16 step apart.)"""
+    def cut(t):
+        return t[:15, :t.shape[1] - 3].contiguous()
+
+    g = torch.Generator(device=a8[2].device).manual_seed(seed)
+    z1, z2 = cut(a8[2]), cut(a8[3])
+    src = (cut(a8[4][0]), cut(a8[4][1]))
+    z0, cent, xyz = cut(a9[2]), cut(a9[5]), a9[6][:15].contiguous()
+    dy2 = (torch.randn(z2.shape, generator=g, device=z2.device)
+           * 1e-2).bfloat16()
+    qc1 = torch.randn(z1.shape[:2] + z1.shape[3:], generator=g,
+                      device=z1.device).bfloat16()
+    tag = " ragged probe"
+    check.bwd_step(tag, True, True, z1, z2, src, *a8[5:])
+    check.bwd_step(tag, False, True, z1, z2, src, *a8[5:])
+    check.bwd_step(tag, True, False, z1, z2, dy2, *a8[5:])
+    check.bwd_step(tag, False, False, z1, z2, dy2, *a8[5:])
+    check.bwd_step0(tag, True, False, z0, z1, cut(a9[4]), cent, xyz,
+                    cut(a9[7]), *a9[8:])
+    check.bwd_step0(tag, False, False, z0, z1, cut(a9[4]), cent, xyz,
+                    cut(a9[7]), *a9[8:])
+    check.bwd_step0(tag, True, True, z1, z2, src, cent, xyz, qc1, *a8[5:],
+                    a9[11])
+    check.bwd_step0(tag, False, True, z1, z2, src, cent, xyz, qc1, *a8[5:],
+                    a9[11])
+
+
+def _bwd_smallest_tile_probe(check, dev, seed):
+    """K8 and K9 at the smallest tile they take (K = 16, 16 <- 16 <- 16, 8
+    centroids a tile) on a seeded chain of 5 x 313 centroids, each kernel
+    on the twins' outputs of the ones before."""
+    fs = check.fs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, n, s, k, f, r = 5, 512, 313, 16, 16, 0.4
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    xyz = randn(b, n, 3, scale=0.5)
+    cent = xyz[:, :s].clone()
+    cent[:, ::7] += 100.0  # empty balls
+    pf, qc = randn(b, n, f).bfloat16(), randn(b, s, f).bfloat16()
+    ws = [randn(f, f, scale=0.3) for _ in range(2)]
+    bs = [randn(f, scale=0.1) for _ in range(2)]
+    m = b * s * k
+
+    def pack(sums, sumsq, **kw):
+        mu = sums / m
+        return fs._make_pack(
+            torch.rand(f, generator=g, device=dev) + 0.5, randn(f, scale=0.2),
+            mu, sumsq / m - mu * mu, 1e-3, **kw)
+
+    z0, s0, q0 = fs.sa_extract_plain(cent, xyz, pf, qc, r, k)
+    p0 = pack(s0, q0)
+    z1, s1, q1 = fs.sa_fwd_step_plain(z0, p0, ws[0], bs[0])
+    p1 = pack(s1, q1)
+    z2, s2, q2, zmax, zmin = fs.sa_fwd_step_plain(z1, p1, ws[1], bs[1], True)
+    p2 = pack(s2, q2, mdy=randn(f, scale=1e-3), mdyx=randn(f, scale=1e-3))
+    src = (fs._pool_epilogue(zmax, zmin, p2), randn(b, s, f).bfloat16())
+    tag = " smallest-tile probe"
+    for train in (True, False):
+        _, (dy1, sdy, sdyx, *_) = check.bwd_step(tag, train, True, z1, z2,
+                                                 src, p1, p2, ws[1])
+        p1b = p1.clone()
+        p1b[4], p1b[5] = sdy / m, sdyx / m
+        check.bwd_step0(tag, train, False, z0, z1, dy1, cent, xyz, qc, p0,
+                        p1b, ws[0], r)
+
+
 def train_fused(args, dev, card: str, ctx):
     """Phases 12-15: training with T3D_FUSED_SA unset (the default), the
     fused set-abstraction path through kernels K5-K9. Returns their JSON
@@ -1199,6 +1279,8 @@ def _train_fused(args, dev, card: str, ctx):
         _, (dy1, *_) = check.bwd_step(tag, a8[0], a8[1], z1, z2,
                                       (pooled, a8[4][1]), *a8[5:])
         check.bwd_step0(tag, a9[0], a9[1], z0, z1, dy1, far, *a9[6:])
+        _bwd_edge_probes(check, a8, a9, args.seed + i)
+    _bwd_smallest_tile_probe(check, dev, args.seed)
 
     # The forward of one step twice from the same start: the BN running
     # statistics of every grouped MLP, which hold K5-K7's batch means and

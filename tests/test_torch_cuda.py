@@ -203,11 +203,14 @@ def _close_bf16(got, ref, share=0.99):
     assert (g - r).abs().max() <= 0.01 * r.abs().max()
 
 
-def _train_case(n, s, k, dims, seed, dev, b=4):
+def _train_case(n, s, k, dims, seed, dev, b=4, all_empty=False):
     g = torch.Generator().manual_seed(seed)
     xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
     cent = xyz[:, :s].clone()
-    cent[:, ::7] += 100.0  # empty balls
+    if all_empty:
+        cent += 100.0
+    else:
+        cent[:, ::7] += 100.0  # empty balls
     pf = torch.randn(b, n, dims[0], generator=g).to(dev).bfloat16()
     qc = torch.randn(b, s, dims[0], generator=g).to(dev).bfloat16()
     _, ws, bs = _chain(g, dims, dev)
@@ -220,12 +223,37 @@ def _train_case(n, s, k, dims, seed, dev, b=4):
 @pytest.mark.parametrize("n,s,r,k,dims", TRAIN_SCALES)
 def test_sa_train_kernels_equal_plain(n, s, r, k, dims):
     """K5-K9 against their plain twins, each on the twin's inputs, in the
-    order of one training step at depth 3; then K9 at the top (depth 2)
-    and the eval forms."""
+    order of one training step at depth 3; then K8 below a stored dy, K9
+    at the top (depth 2) and the eval forms."""
+    _run_train_kernels(4, n, s, r, k, dims)
+
+
+# K8's and K9's tiles at their edges: an odd centroid count, no multiple
+# of the 2, 4 or 8 centroids of a tile; the smallest tile (K = 16,
+# 16 <- 16 <- 16); a 96-wide layer on both sides of the products; 48 rows
+# a centroid (96-row tiles); and no ball with a member. Each probe keeps
+# some 10,000 rows or more: the four sums are held to 1e-4 of their terms'
+# magnitudes, and over a few hundred rows a single dy_j that the two
+# products round one bf16 step apart is more than that.
+BWD_PROBES = [(3, 512, 313, 0.4, 32, (32, 32, 64), False),
+              (3, 256, 157, 0.4, 64, (64, 64, 128), False),
+              (5, 512, 313, 0.4, 16, (16, 16, 16), False),
+              (3, 256, 85, 0.8, 128, (64, 96, 128), False),
+              (3, 256, 157, 0.4, 48, (96, 96, 96), False),
+              (3, 128, 31, 0.4, 128, (128, 128, 256), False),
+              (3, 512, 313, 0.4, 32, (32, 32, 64), True)]
+
+
+@pytest.mark.parametrize("b,n,s,r,k,dims,all_empty", BWD_PROBES)
+def test_sa_bwd_kernels_at_the_tile_edges(b, n, s, r, k, dims, all_empty):
+    _run_train_kernels(b, n, s, r, k, dims, all_empty)
+
+
+def _run_train_kernels(b, n, s, r, k, dims, all_empty=False):
     _need_cuda()
     dev = torch.device("cuda")
     g, cent, xyz, pf, qc, gammas, betas, ws, bs = _train_case(
-        n, s, k, dims, n + s + k + sum(dims), dev)
+        n, s, k, dims, n + s + k + sum(dims), dev, b, all_empty)
     fs = fused_sa
     m = cent.shape[0] * s * k
     before = dict(_build.LAUNCHES)
@@ -275,6 +303,15 @@ def test_sa_train_kernels_equal_plain(n, s, r, k, dims):
         assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
         if train:
             dy1, sdy1, sdyx1 = ref[:3]
+    # K8 below a stored dy (a layer of a deeper chain)
+    dy2 = (torch.randn(z2.shape, generator=g) * 1e-2).to(dev).bfloat16()
+    for train in (True, False):
+        a = (train, False, z1, z2, dy2, p1, p2, ws[1])
+        ref, got, again = (fs.sa_bwd_step_plain(*a), fs.sa_bwd_step(*a),
+                           fs.sa_bwd_step(*a))
+        _close_bf16(got[0], ref[0])
+        _assert_bwd_sums(got[1:], ref[1:], a)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
     p1b = pack(1, s1, q1, mdy=sdy1 / m, mdyx=sdyx1 / m)
     # K9 below a stored dy, and at the top of a depth-2 chain
     cases = [(True, False, z0, z1, dy1, p0, p1b, ws[0]),
@@ -318,7 +355,7 @@ def test_sa_train_kernels_equal_plain(n, s, r, k, dims):
     assert after["sa_extract"] == before["sa_extract"] + 2
     assert after["sa_fwd_step"] == before["sa_fwd_step"] + 1
     assert after["sa_fwd_last"] == before["sa_fwd_last"] + 1
-    assert after["sa_bwd_step"] == before["sa_bwd_step"] + 4
+    assert after["sa_bwd_step"] == before["sa_bwd_step"] + 8
     assert after["sa_bwd_step0"] == before["sa_bwd_step0"] + 8
 
 

@@ -379,6 +379,72 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               t(c["ws"][0]), R)
 
 
+SMEM_LIMIT = 232448
+# K, F_j, F_j1, top: K8's (top) and K9's (below a stored dy) launches of
+# the eight grouped set-abstraction scales of F-PointNet v2.
+PATH_SHAPES = [(32, 32, 64, True), (64, 64, 128, True),
+               (128, 96, 128, True), (64, 64, 128, True),
+               (64, 128, 256, True), (128, 128, 256, True),
+               (64, 64, 128, True), (64, 128, 256, True),
+               (32, 32, 32, False), (64, 64, 64, False),
+               (128, 64, 96, False), (64, 64, 64, False),
+               (64, 128, 128, False), (128, 128, 128, False),
+               (64, 64, 64, False), (64, 128, 128, False)]
+CORNER_SHAPES = [(k, fj, fj1, top)
+                 for k, fj, fj1 in ((16, 16, 16), (128, 256, 128),
+                                    (128, 128, 256), (16, 128, 256),
+                                    (16, 256, 128), (48, 96, 96),
+                                    (80, 16, 16), (112, 160, 192))
+                 for top in (True, False)]
+
+
+@pytest.mark.parametrize("k,f_j,f_j1,top", PATH_SHAPES + CORNER_SHAPES)
+def test_bwd_plan_fits_every_shape_the_launcher_admits(k, f_j, f_j1, top):
+    """The tile plan of K8/K9: whole centroids, at most 128 rows, a power
+    of two that divides the block's 16 warps; one to three stages; and a
+    block's shared memory, as the kernel lays it out, within the card's
+    232,448 bytes. Two stages need W_j resident (the plan never trades W
+    for a stage)."""
+    plan = tfs.sa_bwd_plan(k, f_j, f_j1, top)
+    assert plan.ct >= 1 and plan.ct * k <= 128 and 16 % plan.ct == 0
+    assert 1 <= plan.stages <= 3
+    assert plan.stages == 1 or plan.w_smem
+    assert plan.smem == tfs.sa_bwd_layout_bytes(
+        k, f_j, f_j1, plan.ct, plan.stages, plan.w_smem, top)
+    assert plan.smem <= SMEM_LIMIT
+    assert tfs.sa_bwd_smem_bytes(k, f_j, f_j1, top) == plan.smem
+    if plan.stages < 3:  # nothing larger would have fit
+        more = plan.stages + 1 if plan.w_smem else 1
+        assert tfs.sa_bwd_layout_bytes(k, f_j, f_j1, plan.ct, more, True,
+                                       top) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,f_j,f_j1,top,ct,stages,w_smem", [
+    (32, 32, 64, True, 4, 3, True), (64, 64, 128, True, 2, 3, True),
+    (128, 96, 128, True, 1, 2, True), (64, 128, 256, True, 1, 2, True),
+    (128, 128, 256, True, 1, 1, True), (32, 32, 32, False, 4, 3, True),
+    (64, 64, 64, False, 2, 3, True), (128, 64, 96, False, 1, 2, True),
+    (64, 128, 128, False, 1, 3, True), (128, 128, 128, False, 1, 1, True),
+    (16, 16, 16, False, 8, 3, True), (128, 256, 128, False, 1, 1, False),
+    (128, 128, 256, False, 1, 1, False)])
+def test_bwd_plan_of_the_path_shapes(k, f_j, f_j1, top, ct, stages, w_smem):
+    """The plans the kernel's header states: several centroids a tile
+    below K = 128, a ring of two or three stages wherever two fit with
+    W_j, one stage at K = 128 with 128 <- 256 and 128 <- 128, and W_j
+    through L2 only at the widest corners."""
+    plan = tfs.sa_bwd_plan(k, f_j, f_j1, top)
+    assert (plan.ct, plan.stages, plan.w_smem) == (ct, stages, w_smem)
+
+
+@pytest.mark.parametrize("ncent,ct,tiles,last", [
+    (15, 4, 4, 3), (15, 2, 8, 1), (15, 8, 2, 7), (15, 1, 15, 1),
+    (16384, 4, 4096, 4), (1875, 2, 938, 1)])
+def test_bwd_tiles_of_a_ragged_launch(ncent, ct, tiles, last):
+    """`sa_bwd_tiles`: the tiles of a launch and the centroids of the last
+    one, which the kernel neither loads nor uses beyond."""
+    assert tfs.sa_bwd_tiles(ncent, ct) == (tiles, last)
+
+
 def test_smem_budget_of_the_largest_path_scale():
     # seg-SA2 scale 3: K=128, F 128 -> 256 (one block of K8/K9, of K6/K7).
     assert tfs.sa_bwd_smem_bytes(128, 128, 256) < 232448

@@ -180,3 +180,19 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
                                       "ball_extract.cu"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
     assert _build._sources()[1] != digest  # flags are part of the key
+
+
+def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
+    """T3D_KERNEL_CLOCKS=1 adds the define that compiles K8/K9's phase
+    clocks in, under another library name; unset, the flags are the
+    plain ones."""
+    from transferable3d_torch.ops import _build
+
+    monkeypatch.delenv(_build.CLOCKS_ENV, raising=False)
+    assert _build._flags() == _build.NVCC_FLAGS
+    plain = _build._sources()[1]
+    monkeypatch.setenv(_build.CLOCKS_ENV, "1")
+    assert _build._flags() == _build.NVCC_FLAGS + ["-DT3D_BWD_CLOCKS"]
+    assert _build._sources()[1] != plain
+    src = (_build.SRC_DIR / "sa_train_bwd.cu").read_text()
+    assert "#ifdef T3D_BWD_CLOCKS" in src and "t3d_sa_bwd_clocks" in src

@@ -1,5 +1,6 @@
 // Ball-query selection shared by kernels K2 (sa_infer.cu), K3 and K4
-// (ball_extract.cu), so the three cannot disagree on a group's members.
+// (ball_extract.cu), K5 (sa_train_fwd.cu) and K9 (sa_train_bwd.cu), so
+// that they cannot disagree on a group's members.
 //
 // For one centroid c and the N points of its batch row (one block):
 //   d2     = ((0 + dx*dx) + dy*dy) + dz*dz, dx = c - p (direct form, each
@@ -97,6 +98,114 @@ __device__ __forceinline__ int ball_select(const float* __restrict__ pts,
   }
   __syncthreads();
   return total;
+}
+
+// The same selection by the warps of a block without block barriers of
+// its own, for a block that holds several centroids at once (K9): the
+// `nparts` warps of one centroid each take a contiguous share [lo, hi) of
+// the points; `ball_count_part` leaves the share's in-radius count and
+// nearest point, and after one barrier of the caller's `ball_place_part`
+// gives the members their ranks across the shares, in index order.
+
+__device__ __forceinline__ float ball_d2(const float* __restrict__ pts, int p,
+                                         float cx, float cy, float cz) {
+  const float dx = __fsub_rn(cx, pts[3 * p + 0]);
+  const float dy = __fsub_rn(cy, pts[3 * p + 1]);
+  const float dz = __fsub_rn(cz, pts[3 * p + 2]);
+  float d = __fmul_rn(dx, dx);
+  d = __fadd_rn(d, __fmul_rn(dy, dy));
+  return __fadd_rn(d, __fmul_rn(dz, dz));
+}
+
+// Every lane of the warp calls it; lane 0 writes *cnt, *nd and *ni.
+__device__ __forceinline__ void ball_count_part(const float* __restrict__ pts,
+                                                int lo, int hi, int N,
+                                                float cx, float cy, float cz,
+                                                float r2, int* cnt, float* nd,
+                                                int* ni) {
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  float near_d = INFINITY;
+  int near_i = N;
+  // Four words of 32 points a round, so that their loads fly together.
+  for (int base = lo; base < hi; base += 4 * 32) {
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = base + 32 * u + lane;
+      d[u] = p < hi ? ball_d2(pts, p, cx, cy, cz) : INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (d[u] < near_d) {  // p rises within a lane: lowest index stays
+        near_d = d[u];
+        near_i = base + 32 * u + lane;
+      }
+      count += __popc(__ballot_sync(kFullMask, d[u] <= r2));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od = __shfl_down_sync(kFullMask, near_d, o);
+    const int oi = __shfl_down_sync(kFullMask, near_i, o);
+    if (od < near_d || (od == near_d && oi < near_i)) {
+      near_d = od;
+      near_i = oi;
+    }
+  }
+  if (lane == 0) {
+    *cnt = count;
+    *nd = near_d;
+    *ni = near_i;
+  }
+}
+
+// cnts, nds, nis: the centroid's `nparts` results of ball_count_part.
+// Writes sel[0 .. min(count, K)) (or the nearest point into sel[0]) and
+// *eff = clip(count, 1, K). Every lane of the warp of share `part` calls
+// it.
+__device__ __forceinline__ void ball_place_part(
+    const float* __restrict__ pts, int lo, int hi, float cx, float cy,
+    float cz, float r2, int K, const int* cnts, const float* nds,
+    const int* nis, int part, int nparts, int* sel, int* eff) {
+  const int lane = threadIdx.x & 31;
+  int off = 0, total = 0;
+  for (int q = 0; q < nparts; ++q) {
+    if (q < part) off += cnts[q];
+    total += cnts[q];
+  }
+  if (total > 0) {
+    for (int base = lo; base < hi && off < K; base += 4 * 32) {
+      bool in[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = base + 32 * u + lane;
+        in[u] = p < hi && ball_d2(pts, p, cx, cy, cz) <= r2;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const unsigned m = __ballot_sync(kFullMask, in[u]);
+        if (in[u]) {
+          const int r = off + __popc(m & ((1u << lane) - 1u));
+          if (r < K) sel[r] = base + 32 * u + lane;
+        }
+        off += __popc(m);
+      }
+    }
+  }
+  if (part == 0 && lane == 0) {
+    *eff = total == 0 ? 1 : min(total, K);
+    if (total == 0) {
+      float bd = nds[0];
+      int bi = nis[0];
+      for (int q = 1; q < nparts; ++q) {
+        if (nds[q] < bd || (nds[q] == bd && nis[q] < bi)) {
+          bd = nds[q];
+          bi = nis[q];
+        }
+      }
+      sel[0] = bi;
+    }
+  }
 }
 
 }  // namespace t3d

@@ -26,37 +26,139 @@
 //       (integers) to cnt[b, n] and mult * qc[s] to Mq[b, n], and writes
 //       per centroid Sdy = sum_k dy_0 and Sz = sum_k z_j.
 //
-// What bounds them: three or four [rows, F] bf16 streams around two
-// products of F_j * F_{j+1} multiply-adds a row each, so bytes, provided
-// the products run on the tensor cores. The design: `wmma` 16x16x16 bf16
-// fragments with f32 accumulators; a block of 16 warps holds one
-// centroid's dz, h_j and dy_j tiles in shared memory (159 KB at K = 128,
-// 128 -> 256); dW_j (up to 128 x 256 f32) lives in 8 accumulator
-// fragments per warp for the block's whole walk, each centroid's
-// contribution summed in a fresh fragment and added with one rounded f32
-// add; every whole-grid sum is deterministic (see sa_train.cuh). Only
-// K9's scatter uses atomicAdd into a zeroed f32 workspace, as K4 does:
-// cnt is exact (small integers), H and Mq are exact on integer-valued
-// inputs and otherwise within one ulp of the sum of the terms'
-// magnitudes. TMA, wgmma and a pipeline over centroids are later work.
+// What bounds them on this card: bytes. Two or three [rows, F] bf16
+// streams come in and one goes out around two products of F_j * F_{j+1}
+// multiply-adds a row each; at the training widths the streams need 3.4
+// times as long at 3.35 TB/s as the products at the tensor cores' bf16
+// peak. So the design keeps loads in flight and touches device memory
+// once. What it then spends its time on is the elementwise work around
+// the products: some 25 machine operations an element of dz at the top
+// and 20 an element of dy_j in the epilogue, half of them on the
+// half-rate integer, compare and convert pipe. So the passes are written
+// to need few of them: 8-byte shared-memory accesses, a shift and a mask
+// to unpack a pair, `train` a compile-time flag of the dz pass.
+//
+//   * A tile is `ct` whole centroids, ct * K <= 128 rows (4 centroids at
+//     K = 32, 2 at K = 64), a contiguous run of device memory per tensor.
+//     All 16 warps have product work at every width, and the block
+//     barriers per row fall with ct. The last tile of a launch may hold
+//     fewer centroids; its missing rows are neither loaded nor used.
+//   * Each tile's z_j, z_{j+1} and dy_{j+1} (or pooled and dpooled) come
+//     in once, as 16-byte `cp.async` copies into padded shared-memory
+//     rows, through a ring of `stages` stages. The loads of tile t +
+//     stages start while tile t is still at work: the z_{j+1} side
+//     as soon as both products have read dz, the z_j side once dy_j has
+//     left. Ties, dz, h_j, xhat_j and K9's Sz all read the shared copy.
+//   * dz is written in place over z_{j+1} (top) or dy_{j+1}; dy_j in
+//     place over z_j, by the thread that just read z_j for xhat_j; it
+//     leaves as 16-byte stores (K8) or feeds the scatter (K9).
+//   * Four block barriers a tile. The first pass computes h_j and, below
+//     a stored dy, dz. At the top the pool's gradient is split among the
+//     rows that hold the pooled maximum, and a ball with few members
+//     repeats them, so that ties are the rule: the first pass counts them
+//     for every column and dz follows in a second pass over z_{j+1}. (A
+//     first pass that wrote dz of the rows off the maximum and left the
+//     others to a scalar pass was faster on random tensors and slower on
+//     a training step's.)
+//   * bf16(W_j) stays in shared memory for the block's whole walk where it
+//     fits; else the dy product reads its B fragments through L1/L2.
+//   * The products are `mma.sync.m16n8k16` bf16 with f32 accumulators and
+//     `ldmatrix` operands. The accumulator layout is known, so dy_j is
+//     masked, rounded, summed and stored from registers. dW_j (up to
+//     128 x 256 f32) lives in up to 64 registers a thread for the whole
+//     walk; a tile's contribution is summed from zero and added with one
+//     rounded f32 add.
+//   * K9's ball query is redone by all warps in two sweeps over the
+//     points (count, then place), without a block barrier of its own.
+//
+// Shared memory (bytes; R = ct * K rows, pad = 8 bf16 a row):
+//   stage  = R (Fj + 8) 2  [z_j, then dy_j]
+//          + R (Fj1 + 8) 2 [z_j1, at the top then dz]
+//          + top ? 4 ct Fj1 [pooled | dpooled] : R (Fj1 + 8) 2 [dy_j1, dz]
+//          + 2 ct Fj [qc]
+//   fixed  = R (Fj + 8) 2 [h_j] + (W ? Fj (Fj1 + 8) 2 : 0) + 16 Fj
+//          [a, c, mu, r of layer j] + 24 Fj1 [layer j+1's pack] + 64 Fj
+//          [the whole-grid column sums] + 4 ct Fj1 [ties] + 2048 [the
+//          per-centroid column sums' shares] + 4 R [members] + 256
+// The launcher (ops/fused_sa.py, `sa_bwd_plan`) picks the most centroids
+// a tile can hold with two stages and W resident, a third stage if it
+// fits; a shape too wide for that runs one stage (the next tile's loads
+// then overlap the epilogue only), and leaves W in L2 if it must:
+//   K8 top   K  32  32<- 64  ct 4  3 stages  W       112,640
+//            K  64  64<-128  ct 2  3 stages  W       211,456
+//            K 128  96<-128  ct 1  2 stages  W       191,104
+//            K  64 128<-256  ct 1  2 stages  W       209,920
+//            K 128 128<-256  ct 1  1 stage   W       226,304
+//   K9       K  32  32<- 32  ct 4  3 stages  W       112,384
+//            K  64  64<- 64  ct 2  3 stages  W       204,288
+//            K 128  64<- 96  ct 1  2 stages  W       185,984
+//            K  64 128<-128  ct 1  3 stages  W       226,048
+//            K 128 128<-128  ct 1  1 stage   W       190,976
+//   corners  K  16  16<- 16  ct 8  3 stages  W        67,968
+//            K 128 128<-256  ct 1  1 stage   W in L2  225,280
+//            K 128 256<-128  ct 1  1 stage   W in L2  232,192
+// of the 232,448 a block may have (the corners below a stored dy, their
+// larger form). One block of 512 threads runs per SM, at 128 registers a
+// thread. Registers decide the speed of the passes: beside this much
+// shared memory the L1 is too small to hold spilled values, so the packs
+// wait in shared memory between the passes, and the kernel is compiled
+// for 1, 2, 4 and 8 accumulator blocks of dW a warp, so that only a dW of
+// more than 16,384 entries (128 x 256) fills the register file.
+//
+// Every whole-grid sum is deterministic (see sa_train.cuh): the grid is
+// fixed, a block walks its tiles in order, each accumulator has one owner
+// (a thread's registers, or one thread's slot of shared memory), row
+// groups and warps are added in index order and the blocks' partials in
+// block order. Tie counts are integer atomics in shared memory. Only K9's
+// scatter uses floating-point atomics, into a zeroed f32 workspace as K4
+// does: cnt is exact (small integers), H and Mq are exact on
+// integer-valued inputs and otherwise within one ulp of the sum of the
+// terms' magnitudes. TMA, wgmma and two blocks per SM are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "ball_select.cuh"
 #include "sa_train.cuh"
 
+// Phase clocks, for `scripts/torch_time_sa_bwd.py --phases` only. Built
+// with -DT3D_BWD_CLOCKS, thread 0 of block 0 adds to t3d_bwd_clk[i] the
+// cycles it spent between mark i - 1 and mark i of every tile (0: the
+// ring's wait, 1: the first pass, 2: the second, 3: the products, 4: the
+// way out) and counts its tiles in t3d_bwd_clk[7]. Otherwise the marks are
+// empty.
+#ifdef T3D_BWD_CLOCKS
+__device__ unsigned long long t3d_bwd_clk[8];
+#define T3D_CLK_START long long clk_prev = clock64();
+#define T3D_CLK(i)                                              \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                    \
+    const long long clk_now = clock64();                        \
+    t3d_bwd_clk[i] += (unsigned long long)(clk_now - clk_prev); \
+    t3d_bwd_clk[7] += (i) == 4;                                 \
+    clk_prev = clk_now;                                         \
+  }
+#else
+#define T3D_CLK_START
+#define T3D_CLK(i)
+#endif
+
 namespace {
 
-using namespace nvcuda;
 using t3d::bf16;
 using t3d::kPad;
 using t3d::tof;
+typedef __nv_bfloat162 bf162;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDwFrags = 8;  // accumulator fragments of dW per warp
+constexpr int kDwFrags = 8;   // most 16x16 accumulator blocks of dW a warp
+constexpr int kDyChunk = 2;   // 16-column blocks of dy_j a warp holds at once
+constexpr int kMaxStages = 3;
+constexpr int kMaxWm = 8;     // 16-row blocks of the largest tile
+constexpr size_t kSmemLimit = 232448;
 
 struct BwdArgs {
   const bf16* z_j;      // [C, K, Fj]
@@ -72,273 +174,791 @@ struct BwdArgs {
   const bf16* qc;       // step 0: [C, Fj]
   bf16* dy_j;           // [C, K, Fj], not at step 0
   float* partials;      // [grid, Fj*Fj1 + 2 Fj + Fj1]: dW | sdy | sdyx | db
-  float* scat;          // step 0: zeroed [B, N, 2 Fj + 1]: H | Mq | cnt
+  float* scat;          // step 0: zeroed H, Mq [B, N, Fj] | cnt [B, N]
   float* per_cent;      // step 0: [2, C, Fj]: Sdy | Sz
   int ncent, S, N, K, Fj, Fj1;
   float r2;
   int train, top;
+  int ct, stages, wsmem;  // the launcher's plan
 };
 
-inline size_t bwd_smem_bytes(int k, int fj, int fj1) {
-  return (size_t)k * (fj1 + kPad) * 2 + 2 * (size_t)k * (fj + kPad) * 2 +
-         kWarps * 256 * 4 + kThreads * 4 + (size_t)fj1 * 4 +
-         (size_t)(k + 3 * kWarps) * 4;
+// Byte offsets of the shared-memory buffers (the table in the header).
+struct Layout {
+  size_t tz, t1;               // one [R, Fj] and one [R, Fj1] padded tile
+  size_t a1, x, q, stage;  // within a stage: z_j at 0, z_j1, dy_j1 | pl, qc
+  size_t h, w, pk, pk1, cs, ties, colred, sel, misc, total;
+};
+
+__host__ __device__ inline Layout bwd_layout(int K, int Fj, int Fj1, int ct,
+                                             int stages, int wsmem, int top) {
+  Layout L;
+  const size_t R = (size_t)ct * K;
+  L.tz = R * (Fj + kPad) * 2;
+  L.t1 = R * (Fj1 + kPad) * 2;
+  L.a1 = L.tz;
+  L.x = L.tz + L.t1;
+  L.q = L.x + (top ? (size_t)4 * ct * Fj1 : L.t1);
+  L.stage = L.q + (size_t)2 * ct * Fj;
+  L.h = L.stage * stages;
+  L.w = L.h + L.tz;
+  L.pk = L.w + (wsmem ? (size_t)Fj * (Fj1 + kPad) * 2 : 0);
+  L.pk1 = L.pk + (size_t)4 * Fj * 4;
+  L.cs = L.pk1 + (size_t)6 * Fj1 * 4;
+  L.ties = L.cs + (size_t)2 * kMaxWm * Fj * 4;
+  L.colred = L.ties + (size_t)4 * ct * Fj1;
+  L.sel = L.colred + kThreads * 4;
+  L.misc = L.sel + R * 4;
+  L.total = L.misc + 256;
+  return L;
 }
 
-template <bool kStep0>
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// `rows` rows of F bf16 from a dense global run into padded rows.
+__device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
+                                          int rows, int F) {
+  const int cpr = F >> 3, total = rows * cpr;
+  // chunk i = r * cpr + g, stepped by kThreads without a division
+  int r = threadIdx.x / cpr, g = threadIdx.x - r * cpr;
+  const int dr = kThreads / cpr, dg = kThreads - dr * cpr;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    cp16(dst + (size_t)r * ld + g * 8, src + (size_t)i * 8);
+    r += dr;
+    g += dg;
+    if (g >= cpr) {
+      g -= cpr;
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_flat(bf16* dst, const bf16* src,
+                                          int elems) {
+  for (int i = threadIdx.x * 8; i < elems; i += kThreads * 8)
+    cp16(dst + i, src + i);
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four f32 atomic adds to 16-byte aligned device memory, as one request
+// where the toolkit has the vector form.
+__device__ __forceinline__ void add4(float* at, float4 v) {
+#if CUDART_VERSION >= 12010
+  atomicAdd(reinterpret_cast<float4*>(at), v);
+#else
+  atomicAdd(at, v.x);
+  atomicAdd(at + 1, v.y);
+  atomicAdd(at + 2, v.z);
+  atomicAdd(at + 3, v.w);
+#endif
+}
+
+__device__ __forceinline__ bool lane_id_bit(int bit) {
+  return (threadIdx.x >> bit) & 1;
+}
+
+// A pair of bf16 as two f32: a shift and a mask.
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return unpack2(*reinterpret_cast<const uint32_t*>(p));
+}
+
+// Four channels of a row (8-byte aligned) as two packed pairs.
+__device__ __forceinline__ uint2 lds8(const bf16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  const bf162 b = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+__device__ __forceinline__ void st2(bf16* p, float x, float y) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Four values a lane, each summed over the 8 lanes l, l + 4, ..., l + 28
+// that hold one column pair of an accumulator block, in a fixed order and
+// four shuffles: lanes trade halves, so that lane l + 8 i of the lanes
+// below 16 + 4 ends with the sum of v[i]. Returns the sum of v[((lane >>
+// 4) & 1) * 2 + ((lane >> 3) & 1)], complete in every lane.
+__device__ __forceinline__ float col_sum4(const float (&v)[4]) {
+  const unsigned full = t3d::kFullMask;
+  const bool hi = lane_id_bit(4), mid = lane_id_bit(3);
+  float a = hi ? v[2] : v[0], b = hi ? v[3] : v[1];
+  a = __fadd_rn(a, __shfl_xor_sync(full, hi ? v[0] : v[2], 16));
+  b = __fadd_rn(b, __shfl_xor_sync(full, hi ? v[1] : v[3], 16));
+  float keep = mid ? b : a;
+  keep = __fadd_rn(keep, __shfl_xor_sync(full, mid ? a : b, 8));
+  return __fadd_rn(keep, __shfl_xor_sync(full, keep, 4));
+}
+
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Both values rounded to bf16 by one conversion.
+__device__ __forceinline__ float2 bf16_round2(float x, float y) {
+  const bf162 b = __floats2bfloat162_rn(x, y);
+  return unpack2(*reinterpret_cast<const uint32_t*>(&b));
+}
+
+// t3d::bn_relu of a pair of channels.
+__device__ __forceinline__ float2 bn_relu2(float2 z, float2 a, float2 c) {
+  const float2 y = bf16_round2(__fadd_rn(__fmul_rn(z.x, a.x), c.x),
+                               __fadd_rn(__fmul_rn(z.y, a.y), c.y));
+  return make_float2(fmaxf(y.x, 0.0f), fmaxf(y.y, 0.0f));
+}
+
+// Rows 0, 2, 3, 4, 5 of a pack for a pair of channels.
+struct Pack2 {
+  float2 a, mu, r, mdy, mdyx;
+};
+
+// dz of a pair of channels, given dy_{j+1} and z_{j+1}.
+template <bool kTrain>
+__device__ __forceinline__ float2 dz_of(float2 dy, float2 z, const Pack2& k) {
+  if (!kTrain)
+    return bf16_round2(__fmul_rn(dy.x, k.a.x), __fmul_rn(dy.y, k.a.y));
+  const float xx = __fmul_rn(__fsub_rn(z.x, k.mu.x), k.r.x);
+  const float xy = __fmul_rn(__fsub_rn(z.y, k.mu.y), k.r.y);
+  return bf16_round2(
+      __fmul_rn(__fsub_rn(__fsub_rn(dy.x, k.mdy.x), __fmul_rn(xx, k.mdyx.x)),
+                k.a.x),
+      __fmul_rn(__fsub_rn(__fsub_rn(dy.y, k.mdy.y), __fmul_rn(xy, k.mdyx.y)),
+                k.a.y));
+}
+
+// Per-centroid column sums of a tile of ncol = centroids * F columns, in
+// two steps around a barrier of the caller's: `nseg` threads a column sum
+// a share of its K rows each, then one adds the shares in order.
+__device__ __forceinline__ int col_segments(int ncol, int K) {
+  return 2 * ncol <= kThreads ? min(kThreads / ncol, K / 8) : 1;
+}
+
+__device__ __forceinline__ void col_sums_part(const bf16* buf, int ld, int K,
+                                              int F, int ncol, float* colred,
+                                              float* out) {
+  const int nseg = col_segments(ncol, K);
+  for (int i = threadIdx.x; i < ncol * nseg; i += kThreads) {
+    const int seg = i / ncol, col = i - seg * ncol;
+    const int ci = col / F, f = col - ci * F;
+    const bf16* at = buf + (size_t)ci * K * ld + f;
+    float sum = 0.0f;
+    for (int k = seg * K / nseg; k < (seg + 1) * K / nseg; ++k)
+      sum = __fadd_rn(sum, tof(at[k * ld]));
+    if (nseg == 1) out[col] = sum;
+    else colred[i] = sum;
+  }
+}
+
+__device__ __forceinline__ void col_sums_join(int K, int ncol,
+                                              const float* colred,
+                                              float* out) {
+  const int nseg = col_segments(ncol, K);
+  if (nseg == 1) return;
+  for (int col = threadIdx.x; col < ncol; col += kThreads) {
+    float sum = colred[col];
+    for (int g = 1; g < nseg; ++g) sum = __fadd_rn(sum, colred[g * ncol + col]);
+    out[col] = sum;
+  }
+}
+
+// kNF: the 16x16 blocks of dW a warp keeps (1, 2, 4 or 8). The registers a
+// narrow dW does not need stay free for the passes; with all 8 a few
+// values live in local memory.
+template <bool kStep0, int kNF>
 __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int K = p.K, Fj = p.Fj, Fj1 = p.Fj1;
-  const int lddz = Fj1 + kPad, ldh = Fj + kPad;
-  bf16* dzs = reinterpret_cast<bf16*>(smem);            // [K][lddz]
-  bf16* h = dzs + (size_t)K * lddz;                     // [K][ldh]
-  bf16* dyj = h + (size_t)K * ldh;                      // [K][ldh]
-  float* patch = reinterpret_cast<float*>(dyj + (size_t)K * ldh);
-  float* red = patch + kWarps * 256;                    // [kThreads]
-  int* ties = reinterpret_cast<int*>(red + kThreads);   // [Fj1]
-  int* sel = ties + Fj1;                                // [K]
-  int* wcnt = sel + K;                                  // [kWarps]
-  float* red_d = reinterpret_cast<float*>(wcnt + kWarps);
-  int* red_i = reinterpret_cast<int*>(red_d + kWarps);
+  const int K = p.K, Fj = p.Fj, Fj1 = p.Fj1, ct = p.ct, stages = p.stages;
+  const int R = ct * K;
+  const int ldj = Fj + kPad, ld1 = Fj1 + kPad;
+  const bool train = p.train != 0, top = p.top != 0, wsmem = p.wsmem != 0;
+  const bool need_z1 = top || train;
+  const Layout L = bwd_layout(K, Fj, Fj1, ct, stages, p.wsmem, p.top);
+  bf16* hbuf = reinterpret_cast<bf16*>(smem + L.h);          // [R][ldj]
+  bf16* wsm = reinterpret_cast<bf16*>(smem + L.w);           // [Fj][ld1]
+  float* pk = reinterpret_cast<float*>(smem + L.pk);    // a | c | mu | r
+  float* pk1 = reinterpret_cast<float*>(smem + L.pk1);  // pack_j1's 6 rows
+  float* cs = reinterpret_cast<float*>(smem + L.cs);  // [2][kMaxWm][Fj]
+  int* ties = reinterpret_cast<int*>(smem + L.ties);         // [ct][Fj1]
+  float* colred = reinterpret_cast<float*>(smem + L.colred);  // [kThreads]
+  int* sel = reinterpret_cast<int*>(smem + L.sel);           // [ct][K]
+  int* selcnt = reinterpret_cast<int*>(smem + L.misc);       // [kWarps]
+  float* neard = reinterpret_cast<float*>(selcnt + kWarps);  // [kWarps]
+  int* neari = reinterpret_cast<int*>(neard + kWarps);       // [kWarps]
+  int* effs = neari + kWarps;                                // [ct]
+  int* brow = effs + t3d::kMaxK / 16;  // [ct], the centroids' batch rows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nmi = K / 16, nfj = Fj / 16, nfo = Fj1 / 16;
-  const int nfrag = nfj * nfo;
-  const bool train = p.train != 0, top = p.top != 0;
+  const int nfj = Fj / 16, nfo = Fj1 / 16, nfrag = nfj * nfo;
+  const int ntiles = (p.ncent + ct - 1) / ct;
 
-  // This thread's channel of layer j+1 (o1) and of layer j (o).
-  const t3d::Own o1 = t3d::own(Fj1);
-  const t3d::Own o = t3d::own(Fj);
-  float a1 = 0, c1 = 0, mu1 = 0, r1 = 0, mdy1 = 0, mdyx1 = 0;
-  if (o1.active) {
-    a1 = p.pack_j1[o1.f];
-    c1 = p.pack_j1[Fj1 + o1.f];
-    mu1 = p.pack_j1[2 * Fj1 + o1.f];
-    r1 = p.pack_j1[3 * Fj1 + o1.f];
-    mdy1 = p.pack_j1[4 * Fj1 + o1.f];
-    mdyx1 = p.pack_j1[5 * Fj1 + o1.f];
-  }
-  float a = 0, cc = 0, mu = 0, r = 0;
-  if (o.active) {
-    a = p.pack_j[o.f];
-    cc = p.pack_j[Fj + o.f];
-    mu = p.pack_j[2 * Fj + o.f];
-    r = p.pack_j[3 * Fj + o.f];
-  }
+  // Elementwise passes: a thread owns four channels of layer j+1 (and
+  // four of layer j), as two pairs, for the rows rg, rg + nrg, ... of
+  // every tile.
+  const int nq1 = Fj1 / 4, nrg1 = min(kThreads / nq1, R);
+  const int rg1 = tid / nq1, o1 = 4 * (tid % nq1);
+  const bool act1 = tid < nrg1 * nq1;
+  const int nqj = Fj / 4, nrgj = min(kThreads / nqj, R);
+  const int rgj = tid / nqj, oj = 4 * (tid % nqj);
+  const bool actj = tid < nrgj * nqj;
+  // The packs wait in shared memory: a pass reads its rows when it
+  // starts, so that they hold no registers during the products.
+  for (int i = tid; i < 4 * Fj; i += kThreads) pk[i] = p.pack_j[i];
+  for (int i = tid; i < 6 * Fj1; i += kThreads) pk1[i] = p.pack_j1[i];
+  for (int i = tid; i < 2 * kMaxWm * Fj; i += kThreads) cs[i] = 0.0f;
+  for (int i = tid; i < ct * Fj1; i += kThreads) ties[i] = 0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dwacc[kDwFrags];
+  // Products: warp (wm, wn) of the dy product owns the 16-row block wm and
+  // the 16-column blocks wn, wn + WN, ...; dW's 16x16 blocks go round the
+  // warps.
+  const int nmt_full = R / 16;
+  const int WM = nmt_full > 4 ? 8 : nmt_full > 2 ? 4 : nmt_full > 1 ? 2 : 1;
+  const int WN = kWarps / WM, wm = warp % WM, wn = warp / WM;
+  const int lrow = lane >> 2, lcol = (lane & 3) * 2;
+
+  float dw[kNF][2][4];
 #pragma unroll
-  for (int i = 0; i < kDwFrags; ++i) wmma::fill_fragment(dwacc[i], 0.0f);
-  float s_dy = 0.0f, s_dyx = 0.0f, s_db = 0.0f;
+  for (int i = 0; i < kNF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dw[i][h][e] = 0.0f;
+  float2 s_db[2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 
-  for (int c = blockIdx.x; c < p.ncent; c += gridDim.x) {
-    const int b = c / p.S;
-    int eff = 1;
-    if (kStep0) {
-      const int total = t3d::ball_select<kThreads>(
-          p.xyz + (size_t)b * p.N * 3, p.N, p.cent[(size_t)c * 3 + 0],
-          p.cent[(size_t)c * 3 + 1], p.cent[(size_t)c * 3 + 2], p.r2, K, sel,
-          wcnt, red_d, red_i);
-      eff = total == 0 ? 1 : min(total, K);
-    }
-
-    // --- dz_{j+1} tile -------------------------------------------------
-    const bf16* z1p = p.z_j1 + (size_t)c * K * Fj1 + o1.f;
+  auto stage_ptr = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + L.stage * s);
+  };
+  // The z_{j+1} side of tile T into stage s.
+  auto load1 = [&](int T, int s) {
+    if (T >= ntiles) return;
+    const int c0 = T * ct, nval = min(ct, p.ncent - c0), rows = nval * K;
+    unsigned char* st = smem + L.stage * s;
+    if (need_z1)
+      copy_rows(reinterpret_cast<bf16*>(st + L.a1), ld1,
+                p.z_j1 + (size_t)c0 * K * Fj1, rows, Fj1);
+    bf16* x = reinterpret_cast<bf16*>(st + L.x);
     if (top) {
-      float pl = 0.0f, dp = 0.0f;
-      int cnt = 0;
-      if (o1.active) {
-        pl = tof(p.pooled[(size_t)c * Fj1 + o1.f]);
-        dp = tof(p.dpooled[(size_t)c * Fj1 + o1.f]);
-        for (int k = o1.rg; k < K; k += o1.nrg)
-          cnt += t3d::bn_relu(tof(z1p[(size_t)k * Fj1]), a1, c1) == pl;
-      }
-      // ties per channel: integer sum over the row groups
-      __syncthreads();
-      if (o1.active) reinterpret_cast<int*>(red)[o1.rg * Fj1 + o1.f] = cnt;
-      __syncthreads();
-      if (tid < Fj1) {
-        int t = 0;
-        for (int g = 0; g < o1.nrg; ++g)
-          t += reinterpret_cast<int*>(red)[g * Fj1 + tid];
-        ties[tid] = t;
-      }
-      __syncthreads();
-      if (o1.active) {
-        const float tie = (float)max(ties[o1.f], 1);
-        const float share = t3d::bf16_round(__fdiv_rn(dp, tie));
-        for (int k = o1.rg; k < K; k += o1.nrg) {
-          const float z = tof(z1p[(size_t)k * Fj1]);
-          const float h1 = t3d::bn_relu(z, a1, c1);
-          // dpooled * eq / ties with eq in {0, 1}; masked where h1 == 0
-          const float dy = (h1 == pl && h1 > 0.0f) ? share : 0.0f;
-          float dz;
-          if (train) {
-            const float xhat = __fmul_rn(__fsub_rn(z, mu1), r1);
-            dz = t3d::bf16_round(__fmul_rn(
-                __fsub_rn(__fsub_rn(dy, mdy1), __fmul_rn(xhat, mdyx1)), a1));
-          } else {
-            dz = t3d::bf16_round(__fmul_rn(dy, a1));
-          }
-          dzs[k * lddz + o1.f] = __float2bfloat16_rn(dz);
-          s_db = __fadd_rn(s_db, dz);
-        }
-      }
-    } else if (o1.active) {
-      const bf16* dyp = p.dy_j1 + (size_t)c * K * Fj1 + o1.f;
-      for (int k = o1.rg; k < K; k += o1.nrg) {
-        const float dy = tof(dyp[(size_t)k * Fj1]);
-        float dz;
-        if (train) {
-          const float z = tof(z1p[(size_t)k * Fj1]);
-          const float xhat = __fmul_rn(__fsub_rn(z, mu1), r1);
-          dz = t3d::bf16_round(__fmul_rn(
-              __fsub_rn(__fsub_rn(dy, mdy1), __fmul_rn(xhat, mdyx1)), a1));
-        } else {
-          dz = t3d::bf16_round(__fmul_rn(dy, a1));
-        }
-        dzs[k * lddz + o1.f] = __float2bfloat16_rn(dz);
-        s_db = __fadd_rn(s_db, dz);
-      }
+      copy_flat(x, p.pooled + (size_t)c0 * Fj1, nval * Fj1);
+      copy_flat(x + ct * Fj1, p.dpooled + (size_t)c0 * Fj1, nval * Fj1);
+    } else {
+      copy_rows(x, ld1, p.dy_j1 + (size_t)c0 * K * Fj1, rows, Fj1);
     }
+  };
+  auto load_z = [&](int T, int s) {
+    if (T >= ntiles) return;
+    const int c0 = T * ct, rows = min(ct, p.ncent - c0) * K;
+    copy_rows(stage_ptr(s), ldj, p.z_j + (size_t)c0 * K * Fj, rows, Fj);
+    if (kStep0)
+      copy_flat(reinterpret_cast<bf16*>(smem + L.stage * s + L.q),
+                p.qc + (size_t)c0 * Fj, rows / K * Fj);
+  };
 
-    // --- h_j tile ------------------------------------------------------
-    const bf16* zjp = p.z_j + (size_t)c * K * Fj + o.f;
-    if (o.active)
-      for (int k = o.rg; k < K; k += o.nrg)
-        h[k * ldh + o.f] = __float2bfloat16_rn(
-            t3d::bn_relu(tof(zjp[(size_t)k * Fj]), a, cc));
+  if (wsmem) copy_rows(wsm, ld1, p.wb, Fj, Fj1);
+  for (int s = 0; s < stages; ++s) {
+    const int T = blockIdx.x + s * gridDim.x;
+    load1(T, s);
+    cp_commit();
+    load_z(T, s);
+    cp_commit();
+  }
+
+  int it = 0;
+  T3D_CLK_START
+  for (int T = blockIdx.x; T < ntiles; T += gridDim.x, ++it) {
+    const int s = it % stages;
+    const int c0 = T * ct, nval = min(ct, p.ncent - c0), rows = nval * K;
+    unsigned char* st = smem + L.stage * s;
+    bf16* zj = reinterpret_cast<bf16*>(st);              // [R][ldj]
+    bf16* z1 = reinterpret_cast<bf16*>(st + L.a1);       // [R][ld1]
+    bf16* xb = reinterpret_cast<bf16*>(st + L.x);        // dy_j1 | pooled
+    bf16* dzs = top ? z1 : xb;
+    const bf16* pls = xb;                                // [ct][Fj1]
+    const bf16* dps = xb + ct * Fj1;                     // [ct][Fj1]
+    const bf16* qcs = reinterpret_cast<const bf16*>(st + L.q);  // [ct][Fj]
+
+    // K9: the warps of centroid sci share its ball query; the centroid is
+    // loaded ahead of the wait.
+    const int wpc = kWarps / ct, sci = warp / wpc, spart = warp % wpc;
+    const int schunk = ((p.N + wpc - 1) / wpc + 31) & ~31;
+    const int slo = spart * schunk, shi = min(p.N, slo + schunk);
+    const float* spts = nullptr;
+    float scx = 0, scy = 0, scz = 0;
+    if (kStep0 && sci < nval) {
+      const int c = c0 + sci, b = c / p.S;
+      if (spart == 0 && lane == 0) brow[sci] = b;
+      spts = p.xyz + (size_t)b * p.N * 3;
+      scx = p.cent[(size_t)c * 3 + 0];
+      scy = p.cent[(size_t)c * 3 + 1];
+      scz = p.cent[(size_t)c * 3 + 2];
+    }
+    // Two groups a tile are committed; all but those of the later tiles
+    // have landed.
+    if (stages == 1) cp_wait<0>();
+    else if (stages == 2) cp_wait<2>();
+    else cp_wait<4>();
     __syncthreads();
+    T3D_CLK(0)
 
-    // --- dy_j = relu'(h_j) * bf16(dz @ bf16(W_j)^T) -> shared ----------
-    const int nchunk = (nmi + 3) / 4;
-    for (int it = warp; it < nfj * nchunk; it += kWarps) {
-      const int ni = it % nfj, m0 = (it / nfj) * 4;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    // --- h_j; ties or dz_{j+1}; Sz; the ball query's count ---------------
+    // A thread's rows rg, rg + nrg, ...: `next` steps (k, ci), the row
+    // within its centroid and the centroid, without a division.
+    auto next = [&](int& k, int& ci, int step) {
+      for (k += step; k >= K; k -= K) ++ci;
+    };
+    // dz_{j+1} in place of dy_{j+1}, or at the top in place of z_{j+1}.
+    auto dz_pass = [&](auto train_c) {
+      constexpr bool kTrain = decltype(train_c)::value;
+      Pack2 k1[2];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) wmma::fill_fragment(acc[m], 0.0f);
-      for (int kk = 0; kk < nfo; ++kk) {
-        // B(k = o, n = f) = W[f][o]: column-major over wb's rows
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, p.wb + (size_t)ni * 16 * Fj1 + kk * 16,
-                               Fj1);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          if (m0 + m < nmi) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-                fa;
-            wmma::load_matrix_sync(fa, dzs + (m0 + m) * 16 * lddz + kk * 16,
-                                   lddz);
-            wmma::mma_sync(acc[m], fa, fb, acc[m]);
-          }
+      for (int u = 0; u < 2; ++u) {
+        const float* q = pk1 + o1 + 2 * u;
+        k1[u].a = lds2(q);
+        if (kTrain) {
+          k1[u].mu = lds2(q + 2 * Fj1);
+          k1[u].r = lds2(q + 3 * Fj1);
+          k1[u].mdy = lds2(q + 4 * Fj1);
+          k1[u].mdyx = lds2(q + 5 * Fj1);
         }
       }
-      float* pw = patch + warp * 256;
+      if (top) {
+        float2 c1[2], pl[2], share[2];
+        c1[0] = lds2(pk1 + Fj1 + o1);
+        c1[1] = lds2(pk1 + Fj1 + o1 + 2);
+        int k = -1, ci = 0, last = -1;
+        next(k, ci, rg1 + 1);
+        for (int row = rg1; row < rows; row += nrg1) {
+          const uint2 raw = lds8(z1 + row * ld1 + o1);
+          uint32_t out[2];
+          if (ci != last) {
+            last = ci;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        if (m0 + m < nmi) {
-          wmma::store_matrix_sync(pw, acc[m], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int i = lane; i < 256; i += 32) {
-            const int at = ((m0 + m) * 16 + (i >> 4)) * ldh + ni * 16 +
-                           (i & 15);
-            dyj[at] = tof(h[at]) > 0.0f ? __float2bfloat16_rn(pw[i])
-                                        : __float2bfloat16_rn(0.0f);
+            for (int u = 0; u < 2; ++u) {
+              pl[u] = ld2(pls + ci * Fj1 + o1 + 2 * u);
+              const float2 dp = ld2(dps + ci * Fj1 + o1 + 2 * u);
+              const int* tp = ties + ci * Fj1 + o1 + 2 * u;
+              share[u] = bf16_round2(__fdiv_rn(dp.x, (float)max(tp[0], 1)),
+                                     __fdiv_rn(dp.y, (float)max(tp[1], 1)));
+            }
           }
-          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float2 z = unpack2(u ? raw.y : raw.x);
+            const float2 h1 = bn_relu2(z, k1[u].a, c1[u]);
+            // dpooled * eq / ties with eq in {0, 1}; masked where h1 == 0
+            const float2 dy = {
+                (h1.x == pl[u].x && h1.x > 0.0f) ? share[u].x : 0.0f,
+                (h1.y == pl[u].y && h1.y > 0.0f) ? share[u].y : 0.0f};
+            const float2 dz = dz_of<kTrain>(dy, z, k1[u]);
+            out[u] = pack2(dz.x, dz.y);
+            s_db[u].x = __fadd_rn(s_db[u].x, dz.x);
+            s_db[u].y = __fadd_rn(s_db[u].y, dz.y);
+          }
+          *reinterpret_cast<uint2*>(z1 + row * ld1 + o1) =
+              make_uint2(out[0], out[1]);
+          next(k, ci, nrg1);
+        }
+      } else {
+        for (int row = rg1; row < rows; row += nrg1) {
+          const uint2 raw = lds8(xb + row * ld1 + o1);
+          uint2 zraw = make_uint2(0, 0);
+          if (kTrain) zraw = lds8(z1 + row * ld1 + o1);
+          uint32_t out[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float2 dz = dz_of<kTrain>(unpack2(u ? raw.y : raw.x),
+                                            unpack2(u ? zraw.y : zraw.x), k1[u]);
+            out[u] = pack2(dz.x, dz.y);
+            s_db[u].x = __fadd_rn(s_db[u].x, dz.x);
+            s_db[u].y = __fadd_rn(s_db[u].y, dz.y);
+          }
+          *reinterpret_cast<uint2*>(xb + row * ld1 + o1) =
+              make_uint2(out[0], out[1]);
+        }
+      }
+    };
+    // In K9 half of each scheduler's warps run the ball query's count (a
+    // wait for its points) before their share of the pass, the others
+    // after it.
+    const bool query_first = kStep0 && ((warp >> 2) & 1) != 0;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      if ((half == 0) == query_first) {
+        if (kStep0) {
+          col_sums_part(zj, ldj, K, Fj, nval * Fj, colred,
+                        p.per_cent + ((size_t)p.ncent + c0) * Fj);
+          if (sci < nval)
+            t3d::ball_count_part(spts, slo, shi, p.N, scx, scy, scz, p.r2,
+                                 selcnt + warp, neard + warp, neari + warp);
+        }
+        continue;
+      }
+      if (actj) {
+        float2 aj[2], cj[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          aj[u] = lds2(pk + oj + 2 * u);
+          cj[u] = lds2(pk + Fj + oj + 2 * u);
+        }
+        const bf162 zero = __floats2bfloat162_rn(0.0f, 0.0f);
+        for (int row = rgj; row < rows; row += nrgj) {
+          const uint2 raw = lds8(zj + row * ldj + oj);
+          uint32_t out[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float2 z = unpack2(u ? raw.y : raw.x);
+            const bf162 y = __hmax2(
+                __floats2bfloat162_rn(__fadd_rn(__fmul_rn(z.x, aj[u].x), cj[u].x),
+                                      __fadd_rn(__fmul_rn(z.y, aj[u].y), cj[u].y)),
+                zero);
+            out[u] = *reinterpret_cast<const uint32_t*>(&y);
+          }
+          *reinterpret_cast<uint2*>(hbuf + row * ldj + oj) =
+              make_uint2(out[0], out[1]);
+        }
+      }
+      // dz_{j+1}: below a stored dy here; at the top the pool's gradient
+      // is split among the rows that hold the pooled maximum, so this pass
+      // counts them and dz follows after the barrier.
+      if (act1 && top) {
+        float2 a1[2], c1[2], pl[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          a1[u] = lds2(pk1 + o1 + 2 * u);
+          c1[u] = lds2(pk1 + Fj1 + o1 + 2 * u);
+        }
+        // a thread's count of a centroid's ties joins the others' when its
+        // rows leave the centroid
+        int found[4] = {0, 0, 0, 0};
+        auto join = [&](int c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (found[e]) atomicAdd(ties + c * Fj1 + o1 + e, found[e]);
+            found[e] = 0;
+          }
+        };
+        int k = -1, ci = 0, last = -1;
+        next(k, ci, rg1 + 1);
+        for (int row = rg1; row < rows; row += nrg1) {
+          const uint2 raw = lds8(z1 + row * ld1 + o1);
+          if (ci != last) {
+            if (last >= 0) join(last);
+            last = ci;
+            pl[0] = ld2(pls + ci * Fj1 + o1);
+            pl[1] = ld2(pls + ci * Fj1 + o1 + 2);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float2 h1 = bn_relu2(unpack2(u ? raw.y : raw.x), a1[u], c1[u]);
+            // a channel pooled at 0 gets no gradient: its ties are not used
+            found[2 * u] += pl[u].x > 0.0f && h1.x == pl[u].x;
+            found[2 * u + 1] += pl[u].y > 0.0f && h1.y == pl[u].y;
+          }
+          next(k, ci, nrg1);
+        }
+        if (last >= 0) join(last);
+      } else if (act1) {
+        if (train) dz_pass(std::true_type());
+        else dz_pass(std::false_type());
+      }
+    }
+    __syncthreads();
+    T3D_CLK(1)
+
+    // --- at the top dz_{j+1}; the ball query's members -------------------
+    if (act1 && top) {
+      if (train) dz_pass(std::true_type());
+      else dz_pass(std::false_type());
+    }
+    if (kStep0) {
+      col_sums_join(K, nval * Fj, colred,
+                    p.per_cent + ((size_t)p.ncent + c0) * Fj);
+      if (sci < nval)
+        t3d::ball_place_part(spts, slo, shi, scx, scy, scz, p.r2, K,
+                             selcnt + sci * wpc, neard + sci * wpc,
+                             neari + sci * wpc, spart, wpc, sel + sci * K,
+                             effs + sci);
+    }
+    __syncthreads();
+    T3D_CLK(2)
+
+    // --- dy_j = relu'(h_j) * bf16(dz @ bf16(W_j)^T), in place over z_j ---
+    const int nmt = rows / 16;
+    if (wm < nmt) {
+      const bf16* arow = dzs + (size_t)(wm * 16 + (lane & 15)) * ld1 +
+                         (lane >> 4) * 8;
+      const int r0 = wm * 16 + lrow;
+      for (int n0 = wn; n0 < nfj; n0 += WN * kDyChunk) {
+        float acc[kDyChunk][2][4];
+#pragma unroll
+        for (int q = 0; q < kDyChunk; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[q][h][e] = 0.0f;
+        for (int kk = 0; kk < nfo; ++kk) {
+          uint32_t fa[4];
+          ldsm4(fa, arow + kk * 16);
+#pragma unroll
+          for (int q = 0; q < kDyChunk; ++q) {
+            const int nt = n0 + q * WN;
+            if (nt < nfj) {
+              // B(k = o, n = f) = W[f][o]: W's rows are B's columns
+              uint32_t fb[4];
+              if (wsmem) {
+                ldsm4(fb, wsm + (size_t)(nt * 16 + (lane & 7) +
+                                         (lane >> 4) * 8) * ld1 +
+                              kk * 16 + ((lane >> 3) & 1) * 8);
+              } else {
+                const bf16* wp = p.wb + (size_t)(nt * 16 + lrow) * Fj1 +
+                                 kk * 16 + lcol;
+                fb[0] = __ldg(reinterpret_cast<const uint32_t*>(wp));
+                fb[1] = __ldg(reinterpret_cast<const uint32_t*>(wp + 8));
+                fb[2] = __ldg(reinterpret_cast<const uint32_t*>(
+                    wp + (size_t)8 * Fj1));
+                fb[3] = __ldg(reinterpret_cast<const uint32_t*>(
+                    wp + (size_t)8 * Fj1 + 8));
+              }
+              mma16816(acc[q][0], fa, fb[0], fb[1]);
+              mma16816(acc[q][1], fa, fb[2], fb[3]);
+            }
+          }
+        }
+        // The accumulator of a thread: rows r0 and r0 + 8, columns col and
+        // col + 1 of each 8-column block.
+#pragma unroll
+        for (int q = 0; q < kDyChunk; ++q) {
+          const int nt = n0 + q * WN;
+          if (nt < nfj) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = nt * 16 + h * 8 + lcol;
+              const float2 mu = lds2(pk + 2 * Fj + col);
+              const float2 rr = lds2(pk + 3 * Fj + col);
+              float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // sdy | sdyx
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int row = r0 + e * 8;
+                const float2 hv = ld2(hbuf + row * ldj + col);
+                const float2 zv = ld2(zj + row * ldj + col);
+                const float2 dh =
+                    bf16_round2(acc[q][h][2 * e], acc[q][h][2 * e + 1]);
+                const float dx = hv.x > 0.0f ? dh.x : 0.0f;
+                const float dy = hv.y > 0.0f ? dh.y : 0.0f;
+                st2(zj + row * ldj + col, dx, dy);
+                const float xx = __fmul_rn(__fsub_rn(zv.x, mu.x), rr.x);
+                const float xy = __fmul_rn(__fsub_rn(zv.y, mu.y), rr.y);
+                v[0] = __fadd_rn(v[0], dx);
+                v[1] = __fadd_rn(v[1], dy);
+                v[2] = __fadd_rn(v[2], __fmul_rn(dx, xx));
+                v[3] = __fadd_rn(v[3], __fmul_rn(dy, xy));
+              }
+              const float sum = col_sum4(v);
+              if (!(lane & 4)) {  // the one owner of its slot of cs
+                float* at = cs + (((lane >> 4) & 1) * kMaxWm + wm) * Fj + col +
+                            ((lane >> 3) & 1);
+                *at = __fadd_rn(*at, sum);
+              }
+            }
+          }
         }
       }
     }
 
-    // --- dW_j += h_j^T dz ----------------------------------------------
+    // --- dW_j += h_j^T dz ------------------------------------------------
 #pragma unroll
-    for (int i = 0; i < kDwFrags; ++i) {
+    for (int i = 0; i < kNF; ++i) {
       const int fr = warp + kWarps * i;
       if (fr < nfrag) {
         const int fi = fr / nfo, fo = fr - fi * nfo;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> tmp;
-        wmma::fill_fragment(tmp, 0.0f);
-        for (int kk = 0; kk < nmi; ++kk) {
-          // A(i = f, k = row) = h[row][f]: column-major over h's rows
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-              fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fa, h + kk * 16 * ldh + fi * 16, ldh);
-          wmma::load_matrix_sync(fb, dzs + kk * 16 * lddz + fo * 16, lddz);
-          wmma::mma_sync(tmp, fa, fb, tmp);
+        // A(m = f, k = row) = h[row][f] and B(k = row, n = o) = dz[row][o]:
+        // both are read transposed.
+        const bf16* ap = hbuf + (size_t)((lane & 7) + (lane >> 4) * 8) * ldj +
+                         fi * 16 + ((lane >> 3) & 1) * 8;
+        const bf16* bp = dzs + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   ld1 +
+                         fo * 16 + (lane >> 4) * 8;
+        // The tensor cores do not round their running sum to nearest: a
+        // tile's contribution is summed from zero and joins the walk's sum
+        // by one rounded add, or the error grows with the walk.
+        float tile[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+        for (int kk = 0; kk < nmt; ++kk) {
+          uint32_t fa[4], fb[4];
+          ldsm4t(fa, ap + (size_t)kk * 16 * ldj);
+          ldsm4t(fb, bp + (size_t)kk * 16 * ld1);
+          mma16816(tile[0], fa, fb[0], fb[1]);
+          mma16816(tile[1], fa, fb[2], fb[3]);
         }
 #pragma unroll
-        for (int e = 0; e < tmp.num_elements; ++e)
-          dwacc[i].x[e] = __fadd_rn(dwacc[i].x[e], tmp.x[e]);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dw[i][h][e] = __fadd_rn(dw[i][h][e], tile[h][e]);
       }
     }
-    __syncthreads();  // dyj is complete
+    __syncthreads();  // dz is read, dy_j is complete
+    T3D_CLK(3)
 
-    // --- sums of dy_j, and its way out ---------------------------------
-    float c_dy = 0.0f, c_z = 0.0f;
-    if (o.active) {
-      bf16* out = kStep0 ? nullptr : p.dy_j + (size_t)c * K * Fj + o.f;
-      for (int k = o.rg; k < K; k += o.nrg) {
-        const bf16 db16 = dyj[k * ldh + o.f];
-        const float dy = tof(db16);
-        const float z = tof(zjp[(size_t)k * Fj]);
-        const float xhat = __fmul_rn(__fsub_rn(z, mu), r);
-        s_dy = __fadd_rn(s_dy, dy);
-        s_dyx = __fadd_rn(s_dyx, __fmul_rn(dy, xhat));
-        if (kStep0) {
-          c_dy = __fadd_rn(c_dy, dy);
-          c_z = __fadd_rn(c_z, z);
-        } else {
-          out[(size_t)k * Fj] = db16;
+    // --- the next tile's z_{j+1} side flies from here --------------------
+    const int Tn = T + stages * gridDim.x;
+    load1(Tn, s);
+    cp_commit();
+    if (top)
+      for (int i = tid; i < ct * Fj1; i += kThreads) ties[i] = 0;
+
+    // --- dy_j's way out --------------------------------------------------
+    if (!kStep0) {
+      const int cpr = Fj >> 3, total = rows * cpr;
+      bf16* out = p.dy_j + (size_t)c0 * K * Fj;
+      int r = tid / cpr, g = tid - r * cpr;
+      const int dr = kThreads / cpr, dg = kThreads - dr * cpr;
+      for (int i = tid; i < total; i += kThreads) {
+        *reinterpret_cast<uint4*>(out + (size_t)i * 8) =
+            *reinterpret_cast<const uint4*>(zj + (size_t)r * ldj + g * 8);
+        r += dr;
+        g += dg;
+        if (g >= cpr) {
+          g -= cpr;
+          ++r;
         }
       }
-    }
-    if (kStep0) {
-      c_dy = t3d::reduce_rg<t3d::kSum>(c_dy, o, Fj, red);
-      c_z = t3d::reduce_rg<t3d::kSum>(c_z, o, Fj, red);
-      if (tid < Fj) {
-        p.per_cent[(size_t)c * Fj + tid] = c_dy;
-        p.per_cent[((size_t)p.ncent + c) * Fj + tid] = c_z;
+    } else {
+      // scatter: the member of rank j + 1 fills slots j, j + eff, ...; a
+      // lane takes four channels of one member, Fj / 4 lanes a member.
+      const int lpm = Fj / 4, mpw = lpm < 32 ? 32 / lpm : 1;
+      const int sub = lpm < 32 ? lane / lpm : 0, f0 = (lane - sub * lpm) * 4;
+      const size_t plane = (size_t)(p.ncent / p.S) * p.N * Fj;
+      if (sub < mpw) {
+        // member m = ci * K + j, stepped without a division
+        const int step = kWarps * mpw;
+        int ci = 0, j = warp * mpw + sub;
+        for (; j >= K; j -= K) ++ci;
+        for (int m = warp * mpw + sub; m < rows; m += step) {
+          const int eff = effs[ci];
+          if (j < eff) {
+            const size_t pt = (size_t)brow[ci] * p.N + sel[ci * K + j];
+            float mult = 0.0f;  // the member's slots: (K - (j + 1)) / eff + 1
+            for (int f = f0; f < Fj; f += 128) {
+              const bf16* col = zj + (size_t)ci * K * ldj + f;
+              float4 sum = {0.0f, 0.0f, 0.0f, 0.0f};
+              int slots = 0;
+              for (int k = j; k < K; k += eff, ++slots) {
+                const uint2 raw = lds8(col + k * ldj);
+                const float2 u = unpack2(raw.x), v = unpack2(raw.y);
+                sum.x = __fadd_rn(sum.x, u.x);
+                sum.y = __fadd_rn(sum.y, u.y);
+                sum.z = __fadd_rn(sum.z, v.x);
+                sum.w = __fadd_rn(sum.w, v.y);
+              }
+              mult = (float)slots;
+              const uint2 qraw = lds8(qcs + ci * Fj + f);
+              const float2 q0 = unpack2(qraw.x), q1 = unpack2(qraw.y);
+              float* hrow = p.scat + pt * Fj + f;
+              add4(hrow, sum);
+              add4(hrow + plane,
+                   make_float4(__fmul_rn(mult, q0.x), __fmul_rn(mult, q0.y),
+                               __fmul_rn(mult, q1.x), __fmul_rn(mult, q1.y)));
+            }
+            if (f0 == 0) atomicAdd(p.scat + 2 * plane + pt, mult);
+          }
+          for (j += step; j >= K; j -= K) ++ci;
+        }
       }
-      // scatter: member j's slots are j, j + eff, ...
-      const int w = 2 * Fj + 1;
-      for (int e = tid; e < eff * Fj; e += kThreads) {
-        const int j = e / Fj, f = e - j * Fj;
-        float sum = 0.0f;
-        for (int k = j; k < K; k += eff)
-          sum = __fadd_rn(sum, tof(dyj[k * ldh + f]));
-        const int mult = (K - (j + 1)) / eff + 1;
-        float* row = p.scat + ((size_t)b * p.N + sel[j]) * w;
-        atomicAdd(row + f, sum);
-        atomicAdd(row + Fj + f,
-                  __fmul_rn((float)mult, tof(p.qc[(size_t)c * Fj + f])));
-        if (f == 0) atomicAdd(row + 2 * Fj, (float)mult);
-      }
+      col_sums_part(zj, ldj, K, Fj, nval * Fj, colred,
+                    p.per_cent + (size_t)c0 * Fj);
     }
-    __syncthreads();  // the tiles and sel are rewritten by the next centroid
+    __syncthreads();  // the z_j buffer, sel and effs are free
+    T3D_CLK(4)
+
+    if (kStep0)
+      col_sums_join(K, nval * Fj, colred, p.per_cent + (size_t)c0 * Fj);
+    load_z(Tn, s);
+    cp_commit();
   }
+  cp_wait<0>();
+  __syncthreads();
 
   // --- this block's partial sums ---------------------------------------
-  float* part = p.partials + (size_t)blockIdx.x * (nfrag * 256 + 2 * Fj + Fj1);
+  float* part = p.partials + (size_t)blockIdx.x * (Fj * Fj1 + 2 * Fj + Fj1);
 #pragma unroll
-  for (int i = 0; i < kDwFrags; ++i) {
+  for (int i = 0; i < kNF; ++i) {
     const int fr = warp + kWarps * i;
     if (fr < nfrag) {
       const int fi = fr / nfo, fo = fr - fi * nfo;
-      wmma::store_matrix_sync(part + (size_t)fi * 16 * Fj1 + fo * 16,
-                              dwacc[i], Fj1, wmma::mem_row_major);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* at = part + (size_t)(fi * 16 + lrow) * Fj1 + fo * 16 + h * 8 +
+                    lcol;
+        *reinterpret_cast<float2*>(at) = make_float2(dw[i][h][0], dw[i][h][1]);
+        *reinterpret_cast<float2*>(at + (size_t)8 * Fj1) =
+            make_float2(dw[i][h][2], dw[i][h][3]);
+      }
     }
   }
   float* tail = part + (size_t)Fj * Fj1;
-  s_dy = t3d::reduce_rg<t3d::kSum>(s_dy, o, Fj, red);
-  s_dyx = t3d::reduce_rg<t3d::kSum>(s_dyx, o, Fj, red);
-  s_db = t3d::reduce_rg<t3d::kSum>(s_db, o1, Fj1, red);
-  if (tid < Fj) {
-    tail[tid] = s_dy;
-    tail[Fj + tid] = s_dyx;
+  for (int col = tid; col < 2 * Fj; col += kThreads) {
+    // col < Fj: sum dy_j; else sum dy_j * xhat_j; row blocks in order
+    const float* a = cs + (col < Fj ? col : kMaxWm * Fj + col - Fj);
+    float sum = a[0];
+    for (int m = 1; m < kMaxWm; ++m) sum = __fadd_rn(sum, a[m * Fj]);
+    tail[col] = sum;
   }
-  if (tid < Fj1) tail[2 * Fj + tid] = s_db;
+  float* red = reinterpret_cast<float*>(smem);  // [nrg1][Fj1], stage 0
+  if (act1) {
+    *reinterpret_cast<float4*>(red + rg1 * Fj1 + o1) =
+        make_float4(s_db[0].x, s_db[0].y, s_db[1].x, s_db[1].y);
+  }
+  __syncthreads();
+  for (int col = tid; col < Fj1; col += kThreads) {
+    float sum = red[col];
+    for (int g = 1; g < nrg1; ++g) sum = __fadd_rn(sum, red[g * Fj1 + col]);
+    tail[2 * Fj + col] = sum;
+  }
 }
 
 bool bad_tile(int k, int f) {
@@ -348,9 +968,22 @@ bool bad_tile(int k, int f) {
 
 }  // namespace
 
+#ifdef T3D_BWD_CLOCKS
+// Copies the phase clocks to `out` (8 values) and sets them to zero.
+extern "C" int t3d_sa_bwd_clocks(unsigned long long* out) {
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, t3d_bwd_clk, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(t3d_bwd_clk, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
+
 // One backward step of the chain (K8, or K9 with `step0`). `partials` is
 // f32 [grid, Fj*Fj1 + 2 Fj + Fj1] scratch and `sums` receives dW_j
-// [Fj, Fj1] | sum dy_j | sum dy_j * xhat_j | db_j. See BwdArgs for the
+// [Fj, Fj1] | sum dy_j | sum dy_j * xhat_j | db_j. `ct` centroids a tile,
+// `stages` ring stages and `wsmem` (W_j in shared memory) are the
+// launcher's plan. Every tensor is 16-byte aligned. See BwdArgs for the
 // other buffers; those a form does not use may be null.
 extern "C" int t3d_sa_bwd_step(
     const void* z_j, const void* z_j1, const void* dy_j1, const void* pooled,
@@ -358,13 +991,18 @@ extern "C" int t3d_sa_bwd_step(
     const void* wb, const float* cent, const float* xyz, const void* qc,
     void* dy_j, float* partials, float* sums, float* scat, float* per_cent,
     int b, int s, int n, int k, int fj, int fj1, float r2, int train, int top,
-    int step0, int grid, void* stream) {
+    int step0, int ct, int stages, int wsmem, int grid, void* stream) {
   if (b < 1 || s < 1 || grid < 1 || bad_tile(k, fj) || bad_tile(k, fj1) ||
       (fj / 16) * (fj1 / 16) > kDwFrags * kWarps)
+    return (int)cudaErrorInvalidValue;
+  if (ct < 1 || ct * k > t3d::kMaxK || kWarps % ct || stages < 1 ||
+      stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   if (top ? (!pooled || !dpooled) : !dy_j1) return (int)cudaErrorInvalidValue;
   if (step0 ? (!cent || !xyz || !qc || !scat || !per_cent || n < 1) : !dy_j)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_layout(k, fj, fj1, ct, stages, wsmem, top).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.z_j = static_cast<const bf16*>(z_j);
   a.z_j1 = static_cast<const bf16*>(z_j1);
@@ -390,9 +1028,20 @@ extern "C" int t3d_sa_bwd_step(
   a.r2 = r2;
   a.train = train;
   a.top = top;
+  a.ct = ct;
+  a.stages = stages;
+  a.wsmem = wsmem;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(k, fj, fj1);
-  auto kern = step0 ? sa_bwd_step_kernel<true> : sa_bwd_step_kernel<false>;
+  const int nf = ((fj / 16) * (fj1 / 16) + kWarps - 1) / kWarps;
+  void (*kern)(BwdArgs);
+  if (nf <= 1)
+    kern = step0 ? sa_bwd_step_kernel<true, 1> : sa_bwd_step_kernel<false, 1>;
+  else if (nf <= 2)
+    kern = step0 ? sa_bwd_step_kernel<true, 2> : sa_bwd_step_kernel<false, 2>;
+  else if (nf <= 4)
+    kern = step0 ? sa_bwd_step_kernel<true, 4> : sa_bwd_step_kernel<false, 4>;
+  else
+    kern = step0 ? sa_bwd_step_kernel<true, 8> : sa_bwd_step_kernel<false, 8>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

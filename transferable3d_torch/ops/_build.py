@@ -8,8 +8,10 @@ library with a plain C interface, which is loaded with ctypes. The
 library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused
-within a checkout. Nothing here runs at import time: the CPU tests
-import every module on machines without `nvcc`.
+within a checkout. With `T3D_KERNEL_CLOCKS=1` in the environment
+`sa_train_bwd.cu` is compiled with its phase clocks, as a library of its
+own name. Nothing here runs at import time: the CPU tests import every
+module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
 synchronise, and returns `cudaGetLastError()`; `check()` raises on a
@@ -35,6 +37,9 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
+# Set to "1" before the first build of a process, this compiles K8/K9
+# with their phase clocks (scripts/torch_time_sa_bwd.py --phases).
+CLOCKS_ENV = "T3D_KERNEL_CLOCKS"
 
 LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
             "sa_extract": 0, "sa_fwd_step": 0, "sa_fwd_last": 0,
@@ -66,8 +71,9 @@ _SIGNATURES = {
                         _I, _I, _P],
     # z_j, z_j1, dy_j1, pooled, dpooled, pack_j, pack_j1, bf16 W, cent,
     # xyz, qc, dy_j, partials, sums, scatter workspace, per-centroid
-    # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, grid, stream
-    "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, centroids per
+    # tile, stages, W in shared memory, grid, stream
+    "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     # pts, inside (bytes), u, perm, sampled, idx, count, F, MB, N, C,
     # npoints, stream
     "t3d_fetch_select": [_P] * 7 + [_I] * 5 + [_P],
@@ -91,12 +97,18 @@ def _nvcc() -> str:
         "transferable3d_torch cannot be built on this machine")
 
 
+def _flags():
+    if os.environ.get(CLOCKS_ENV) == "1":
+        return NVCC_FLAGS + ["-DT3D_BWD_CLOCKS"]
+    return NVCC_FLAGS
+
+
 def _sources():
     srcs = sorted(SRC_DIR.glob("*.cu"))
     deps = srcs + sorted(SRC_DIR.glob("*.cuh"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for p in deps:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -133,7 +145,7 @@ def library() -> ctypes.CDLL:
             work = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
             work.mkdir(parents=True, exist_ok=True)
             objs = [work / f"{src.stem}.o" for src in srcs]
-            _run_all([[nvcc, *NVCC_FLAGS, "-I", SRC_DIR, "-c", "-o", obj,
+            _run_all([[nvcc, *_flags(), "-I", SRC_DIR, "-c", "-o", obj,
                        src] for src, obj in zip(srcs, objs)])
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             _run_all([[nvcc, "-shared", *ARCH, "-o", tmp, *objs]])

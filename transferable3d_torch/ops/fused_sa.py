@@ -39,7 +39,8 @@ chain is bf16 and its rounding is part of the function.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -315,14 +316,17 @@ def sa_bwd_step0_plain(train: bool, top: bool, z_j, z_j1, dy_src, cent, xyz,
 # order, so the sums are the same bits run after run.
 # ---------------------------------------------------------------------------
 
-# What the kernels take: K rows of one centroid are one tile of 16-row
+# What the kernels take: K rows of one centroid are whole 16-row
 # tensor-core fragments (at most 8), widths are fragment multiples, and the
-# backward keeps dW_j in at most 8 accumulator fragments per warp.
+# backward keeps dW_j in at most 8 16x16 accumulator blocks per warp.
 _TRAIN_MAX_K = 128
 _TRAIN_MAX_F = 256
 _TRAIN_MAX_DW = 32768
-_FWD_THREADS, _BWD_THREADS = 256, 512
+_FWD_THREADS = 256
 _PAD = 8  # bf16 elements of padding per shared-memory tile row
+# K8/K9 (sa_train_bwd.cu): threads, rows of a tile, ring stages, 16-row
+# blocks.
+_BWD_THREADS, _BWD_TILE_ROWS, _BWD_MAX_STAGES, _BWD_MAX_WM = 512, 128, 3, 8
 
 
 def _need(what: str, dev, specs) -> None:
@@ -350,9 +354,13 @@ def _need_tile(what: str, k: int, *widths: int) -> None:
                              f"up to {_TRAIN_MAX_F}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _grid(dev, ncent: int, per_sm: int) -> int:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(ncent, sms * per_sm))
+    return max(1, min(ncent, _sm_count(dev) * per_sm))
 
 
 def sa_fwd_smem_bytes(k: int, f_in: int, f_out: int) -> int:
@@ -363,13 +371,69 @@ def sa_fwd_smem_bytes(k: int, f_in: int, f_out: int) -> int:
             + (_FWD_THREADS // 32) * 1024 + _FWD_THREADS * 4)
 
 
-def sa_bwd_smem_bytes(k: int, f_j: int, f_j1: int) -> int:
-    """Dynamic shared memory of one K8/K9 block (mirrors
-    sa_train_bwd.cu): the dz, h_j and dy_j tiles, the warps' patches,
-    the reduction scratch, the tie counts and the selection."""
-    return (k * (f_j1 + _PAD) * 2 + 2 * k * (f_j + _PAD) * 2
-            + (_BWD_THREADS // 32) * 1024 + _BWD_THREADS * 4 + f_j1 * 4
-            + (k + 3 * (_BWD_THREADS // 32)) * 4)
+class BwdPlan(NamedTuple):
+    """How K8/K9 tile one shape: `ct` whole centroids (ct * K rows) a
+    tile, `stages` ring stages, bf16(W_j) resident in shared memory or
+    read through L2, and the block's dynamic shared memory in bytes."""
+    ct: int
+    stages: int
+    w_smem: bool
+    smem: int
+
+
+def sa_bwd_layout_bytes(k: int, f_j: int, f_j1: int, ct: int, stages: int,
+                        w_smem: bool, top: bool) -> int:
+    """Dynamic shared memory of one K8/K9 block (mirrors `bwd_layout` of
+    sa_train_bwd.cu). A stage: the z_j and z_j1 tiles, either dy_j1's
+    tile or pooled and dpooled, and qc's rows. Fixed: the h_j tile, W_j,
+    four rows of layer j's pack and the six of layer j+1's, the
+    whole-grid column sums, the tie counts, the per-centroid column
+    sums' shares, the members, the ball query's scratch."""
+    rows = ct * k
+    tz, t1 = rows * (f_j + _PAD) * 2, rows * (f_j1 + _PAD) * 2
+    stage = tz + t1 + (4 * ct * f_j1 if top else t1) + 2 * ct * f_j
+    return (stages * stage + tz
+            + (f_j * (f_j1 + _PAD) * 2 if w_smem else 0) + 4 * f_j * 4
+            + 6 * f_j1 * 4 + 2 * _BWD_MAX_WM * f_j * 4 + 4 * ct * f_j1
+            + _BWD_THREADS * 4 + rows * 4 + 256)
+
+
+@functools.lru_cache(maxsize=None)
+def sa_bwd_plan(k: int, f_j: int, f_j1: int, top: bool = True) -> BwdPlan:
+    """The most centroids a tile can hold (a power of two, at most 128
+    rows) with two stages and W_j resident, and a third stage if it fits.
+    A shape too wide for that takes the largest tile with one stage (the
+    next tile's loads then overlap the epilogue only), without W_j in
+    shared memory if it must."""
+    ct_max = max(1, _BWD_TILE_ROWS // k)
+
+    def fits(ct, stages, w):
+        return sa_bwd_layout_bytes(k, f_j, f_j1, ct, stages, w,
+                                   top) <= _SMEM_LIMIT
+
+    ct = ct_max
+    while ct > 1 and not fits(ct, 2, True):
+        ct //= 2
+    if fits(ct, 2, True):
+        stages = max(n for n in range(2, _BWD_MAX_STAGES + 1)
+                     if fits(ct, n, True))
+        w_smem = True
+    else:
+        ct, stages, w_smem = ct_max, 1, fits(ct_max, 1, True)
+    return BwdPlan(ct, stages, w_smem, sa_bwd_layout_bytes(
+        k, f_j, f_j1, ct, stages, w_smem, top))
+
+
+def sa_bwd_tiles(ncent: int, ct: int) -> Tuple[int, int]:
+    """(tiles of a launch over `ncent` centroids, centroids of the last
+    tile): the last tile is ragged where ct does not divide ncent."""
+    tiles = -(-ncent // ct)
+    return tiles, ncent - (tiles - 1) * ct
+
+
+def sa_bwd_smem_bytes(k: int, f_j: int, f_j1: int, top: bool = True) -> int:
+    """Dynamic shared memory of one K8/K9 block under `sa_bwd_plan`."""
+    return sa_bwd_plan(k, f_j, f_j1, top).smem
 
 
 def _need_smem(what: str, smem: int) -> None:
@@ -481,9 +545,15 @@ def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
                          f"{_TRAIN_MAX_DW} entries")
     if step0 and n < 1:
         raise ValueError(f"{what}: no points")
-    _need_smem(what, sa_bwd_smem_bytes(k, f_j, f_j1))
+    plan = sa_bwd_plan(k, f_j, f_j1, top)
+    _need_smem(what, plan.smem)
+    # the tiles come in as 16-byte copies: a view at an odd offset is
+    # copied to storage of its own
+    z_j, z_j1, dy_j1, pooled, dpooled = (
+        t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+        for t in (z_j, z_j1, dy_j1, pooled, dpooled))
     lib = _build.library()
-    grid = _grid(dev, b * s, 1)
+    grid = _grid(dev, sa_bwd_tiles(b * s, plan.ct)[0], 1)
     wb = w_j.to(_BF)
     f32 = dict(dtype=torch.float32, device=dev)
     nsum = f_j * f_j1 + 2 * f_j + f_j1
@@ -492,7 +562,7 @@ def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
     dy_j = None if step0 else torch.empty(b, s, k, f_j, dtype=_BF,
                                           device=dev)
     if step0:
-        acc = torch.zeros(b, n, 2 * f_j + 1, **f32)  # H | Mq | cnt
+        acc = torch.zeros(b * n * (2 * f_j + 1), **f32)  # H | Mq | cnt
         per_cent = torch.empty(2, b, s, f_j, **f32)
         scat = acc.data_ptr()
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -507,14 +577,16 @@ def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
             sums.data_ptr(), scat if step0 else None,
             per_cent.data_ptr() if step0 else None, b, s, n, k, f_j, f_j1,
             radius_sq(radius) if step0 else 0.0, int(train), int(top),
-            int(step0), grid, _build.stream_ptr(dev))
+            int(step0), plan.ct, plan.stages, int(plan.w_smem), grid,
+            _build.stream_ptr(dev))
     _build.check(code, "t3d_sa_bwd_step")
     dw = sums[:f_j * f_j1].reshape(f_j, f_j1)
     sdy, sdyx, db = sums[f_j * f_j1:].split((f_j, f_j, f_j1))
     if not step0:
         return dy_j, sdy, sdyx, dw, db
-    return (sdy, sdyx, dw, db, acc[..., :f_j], acc[..., f_j:2 * f_j],
-            acc[..., 2 * f_j].reshape(b, 1, n), per_cent[0], per_cent[1])
+    h_acc, mq, cnt = acc.split((b * n * f_j, b * n * f_j, b * n))
+    return (sdy, sdyx, dw, db, h_acc.view(b, n, f_j), mq.view(b, n, f_j),
+            cnt.view(b, 1, n), per_cent[0], per_cent[1])
 
 
 def sa_bwd_step_cuda(train: bool, top: bool, z_j, z_j1, dy_src, pack_j,
