@@ -30,9 +30,12 @@ Serving phases, one line each, under torch.no_grad():
      (kernel K2) are required, and their arguments are captured;
   5. each kernel vs its plain PyTorch twin on those arguments: FPS
      indices identical; K2 >= 99% of pooled values bit-identical, max
-     |diff| <= 1% of max |pooled|, >= 10% of pooled nonzero; and the
-     card's predict step vs the plain twins on the CPU for 8 frustums
-     (seg logits within 3% of their max, mask agreement >= 99%);
+     |diff| <= 1% of max |pooled|, >= 10% of pooled nonzero; K2 at the
+     same limits on the probes of `INFER_PROBES` (ragged widths, K = 24
+     and K = 1, every ball one member, a 512-wide last layer, an inner
+     layer for the general f32 kernel); and the card's predict step vs
+     the plain twins on the CPU for 8 frustums (seg logits within 3% of
+     their max, mask agreement >= 99%);
   6. `run_inference` over 4 batches (512 frustums): finite detections;
   7. times with CUDA events, each beside the card's name and power
      limit: every kernel and its plain twin at each main-path shape, and
@@ -72,11 +75,12 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      loss term, metric and gradient finite;
  13. each of K5-K9 vs its plain twin on the captured arguments, and the
      chain again with every other centroid moved 100 m away, at the
-     limits `FusedChecks` states; K8 and K9 also on a cut of each scale
-     whose last tile is ragged (15 frustums, S - 3 centroids), there at
-     the top and below a stored dy, train and eval, and at their smallest
-     tile (K = 16, 16 <- 16); each kernel's sums bit-identical when
-     it runs twice; the grouped MLPs' BN running statistics bit-identical
+     limits `FusedChecks` states; K6-K9 also on a cut of each scale
+     whose last tile is ragged (15 frustums, S - 3 centroids), K8 and K9
+     there at the top and below a stored dy, train and eval, and at their
+     smallest tile (K = 16, 16 <- 16); K6 and K7 at the corners of their
+     plan (K = 16; 128 rows of 128 -> 128, 128 -> 256 and 256 -> 256);
+     each kernel's sums bit-identical when it runs twice; the grouped MLPs' BN running statistics bit-identical
      after one step from two copies of the model;
  14. phase 10's bf16 check with the fused path on the card (kernels) and
      on the CPU (plain twins), at the limits of `FUSED_COS`, with two
@@ -408,6 +412,7 @@ def serve(args, dev, card: str):
               f"{err_far:.4g}", flush=True)
         _check(eq_far >= 0.99 and err_far <= 0.01 * float(ref.abs().max()),
                "sa_infer kernel disagrees on empty balls")
+    _infer_probes(dev, args.seed)
     small = data.get_batch(list(range(CHECK_B)))
     cpu_model = copy.deepcopy(model).to("cpu")
     ep_gpu = model(torch.as_tensor(small["points"], device=dev),
@@ -490,6 +495,55 @@ def serve(args, dev, card: str):
     return kernels
 
 
+# K2's probes (phase 5): (name, B, N, S, radius, K, widths). Ragged
+# chains that the launcher pads to multiples of 16, K = 24 and K = 1, a
+# radius that leaves every ball one member, a last layer of 512 and a
+# chain whose inner layer (160) takes the general f32 kernel.
+INFER_PROBES = (("K=24, widths 40", 16, 1024, 128, 0.4, 24, (40, 64, 40)),
+                ("K=1", 16, 1024, 128, 0.4, 1, (64, 64, 128)),
+                ("every ball one member", 16, 1024, 128, 1e-4, 128,
+                 (64, 96, 128)),
+                ("last layer 512", 8, 1024, 128, 0.4, 64, (64, 64, 512)),
+                ("inner layer 160 (f32 kernel)", 8, 512, 64, 0.4, 64,
+                 (64, 160, 64)))
+
+
+def _infer_probes(dev, seed):
+    """K2 against its plain twin on the INFER_PROBES chains (seeded
+    points, weights and BN statistics; every eighth centroid far away, so
+    its ball is empty): >= 99% of pooled values bit-identical and max
+    |diff| <= 1% of max |pooled|."""
+    from transferable3d_torch.ops import fused_sa
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    for name, b, n, s, r, k, dims in INFER_PROBES:
+        xyz = randn(b, n, 3, scale=0.5)
+        cent = xyz[:, :s].clone()
+        cent[:, ::8] += 100.0
+        pf, qc = randn(b, n, dims[0]).bfloat16(), randn(b, s, dims[0]).bfloat16()
+        packs = [fused_sa._make_pack(
+            torch.rand(f, generator=g, device=dev) + 0.5, randn(f, scale=0.2),
+            randn(f, scale=0.2), torch.rand(f, generator=g, device=dev) + 0.5,
+            1e-3) for f in dims]
+        ws = [randn(dims[i], dims[i + 1], scale=dims[i] ** -0.5)
+              for i in range(len(dims) - 1)]
+        bs = [randn(f, scale=0.1) for f in dims[1:]]
+        a = (cent, xyz, pf, qc, r, k, packs, ws, bs)
+        eq, err, top = _bf16_agree(fused_sa.sa_infer_cuda(*a),
+                                   fused_sa.sa_infer_plain(*a))
+        plan = fused_sa.sa_infer_plan(k, tuple(dims))
+        print(f"phase 5 sa_infer probe {name}: S={s} K={k} F={list(dims)} "
+              f"({'tensor cores' if plan.mma else 'f32 pipes'}, widths "
+              f"{list(plan.dims)}): bit-identical {eq:.5f} max|diff| "
+              f"{err:.4g} (max|pooled| {top:.4g})", flush=True)
+        _check(eq >= 0.99 and err <= 0.01 * top and top > 0,
+               f"sa_infer kernel disagrees with its plain twin ({name})")
+
+
 def _ball_shares(cent, xyz, r, k):
     from transferable3d_torch.ops.grouping import direct_sqdist, radius_sq
 
@@ -560,14 +614,17 @@ class SmallStep:
     change the box net's balls on one side only."""
 
     def __init__(self, cfg, initial, batch, lr, bn, seed, dev,
-                 name="frustum_pointnets_v2", model_kw=None, step_cfg=None):
+                 name="frustum_pointnets_v2", model_kw=None, step_cfg=None,
+                 adapt=None):
         """`name`, `model_kw` and `step_cfg` select the model and the
-        step (default: v2, IoU metrics on)."""
+        step (default: v2, IoU metrics on); `adapt(model)`, if given,
+        changes the layers of every model built as `initial` was."""
         from transferable3d_torch.models import layers
         from transferable3d_torch.train import train_loop
 
         self.cfg, self.initial, self.lr, self.bn = cfg, initial, lr, bn
         self.name, self.model_kw = name, model_kw or {}
+        self.adapt = adapt
         self.step_cfg = step_cfg or train_loop.StepConfig()
         small = {k: v[:CHECK_B].copy() for k, v in batch.items()}
         mean = small["points"][..., :3].mean(axis=1)
@@ -609,6 +666,8 @@ class SmallStep:
 
         m = registry.get_model(self.name, self.cfg, dtype=dtype,
                                device=where, **self.model_kw)
+        if self.adapt is not None:
+            self.adapt(m)
         m.load_state_dict(self.initial.state_dict())
         if pin:
             with torch.no_grad():
@@ -1094,6 +1153,44 @@ class FusedChecks:
         return err, ref
 
 
+def _fwd_edge_probes(check, a6, a7):
+    """K6 and K7 on 15 frustums and S - 3 centroids of one scale's
+    captured arguments: an odd centroid count, so the last tile of a
+    launch holds fewer centroids than the others wherever a tile holds 2
+    or 4."""
+    def cut(t):
+        return t[:15, :t.shape[1] - 3].contiguous()
+
+    check.fwd_step(" ragged probe", cut(a6[0]), *a6[1:])
+    check.fwd_step(" ragged probe", cut(a7[0]), *a7[1:])
+
+
+def _fwd_corner_probes(check, dev, seed):
+    """K6 and K7 at the corners of their plan on seeded rows that repeat
+    as a ball's slots do: the smallest tile (K = 16, 16 -> 16, 8
+    centroids), 128 rows of 128 -> 128 and 128 -> 256 with a ragged last
+    tile, and 256 -> 256 (W read through L2)."""
+    fs = check.fs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b, s, k, f_in, f_out in ((5, 313, 16, 16, 16),
+                                 (3, 17, 128, 128, 128),
+                                 (3, 17, 128, 128, 256),
+                                 (3, 17, 128, 256, 256)):
+        z = torch.randn(b, s, k, f_in, generator=g, device=dev)
+        eff = torch.randint(1, k + 1, (b, s, 1), generator=g, device=dev)
+        slot = (torch.arange(k, device=dev) % eff)[..., None]
+        z = z.gather(2, slot.expand_as(z)).bfloat16()
+        pack = fs._make_pack(
+            torch.rand(f_in, generator=g, device=dev) + 0.5,
+            torch.randn(f_in, generator=g, device=dev) * 0.2,
+            torch.randn(f_in, generator=g, device=dev) * 0.2,
+            torch.rand(f_in, generator=g, device=dev) + 0.5, 1e-3)
+        w = torch.randn(f_in, f_out, generator=g, device=dev) * f_in ** -0.5
+        bias = torch.randn(f_out, generator=g, device=dev) * 0.1
+        for last in (False, True):
+            check.fwd_step(" corner probe", z, pack, w, bias, last)
+
+
 def _bwd_edge_probes(check, a8, a9, seed):
     """K8 and K9 on 15 frustums and S - 3 centroids of one scale's captured
     arguments: an odd centroid count, so the last tile of a launch holds
@@ -1279,8 +1376,10 @@ def _train_fused(args, dev, card: str, ctx):
         _, (dy1, *_) = check.bwd_step(tag, a8[0], a8[1], z1, z2,
                                       (pooled, a8[4][1]), *a8[5:])
         check.bwd_step0(tag, a9[0], a9[1], z0, z1, dy1, far, *a9[6:])
+        _fwd_edge_probes(check, a6, a7)
         _bwd_edge_probes(check, a8, a9, args.seed + i)
     _bwd_smallest_tile_probe(check, dev, args.seed)
+    _fwd_corner_probes(check, dev, args.seed)
 
     # The forward of one step twice from the same start: the BN running
     # statistics of every grouped MLP, which hold K5-K7's batch means and

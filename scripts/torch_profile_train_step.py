@@ -2,6 +2,7 @@
 
     python3 scripts/torch_profile_train_step.py [--fused 0|1] [--steps 3]
     python3 scripts/torch_profile_train_step.py --model v1 [--e2e]
+    python3 scripts/torch_profile_train_step.py --predict [--root PATH]
 
 Builds F-PointNet v2 (or, with `--model v1`, v1) in bf16 at the
 `v2_train` width of chip_smoke.py (B=128, N=1024, C=4, 512 object
@@ -16,8 +17,12 @@ prints: the step time, the device time per step (the sum of the kernels'
 own times, so the idle share follows), the number of device kernels per
 step, the five training kernels' (or, with `--fused 0`, K3/K4's) times by
 name, and the operators that hold the most device time. `--fused 1` (the
-default) leaves `T3D_FUSED_SA` unset; `--fused 0` sets it to "0". Needs
-one NVIDIA GPU; imports no JAX.
+default) leaves `T3D_FUSED_SA` unset; `--fused 0` sets it to "0". With
+`--predict` the step is v2's `make_predict_step` in chip_smoke.py's
+serving configuration (perturbed BN statistics, half the points masked)
+instead of a train step. `--root PATH` imports the port and chip_smoke.py
+from another checkout, so that two trees are measured on one card in one
+call (parent, tree, tree, parent). Needs one NVIDIA GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 
 def main() -> None:
@@ -40,11 +44,18 @@ def main() -> None:
     ap.add_argument("--model", default="v2", choices=("v1", "v2"))
     ap.add_argument("--e2e", action="store_true",
                     help="v1 only: depth maps -> frustums -> step")
+    ap.add_argument("--predict", action="store_true",
+                    help="v2's predict step (serving) instead of a train step")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout to import the port from")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
     if args.e2e and args.model != "v1":
         ap.error("--e2e runs F-PointNet v1: pass --model v1")
+    if args.predict and (args.e2e or args.model != "v2"):
+        ap.error("--predict runs F-PointNet v2's predict step")
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU (CUDA)")
     import chip_smoke
@@ -74,7 +85,25 @@ def main() -> None:
     train_step = train_loop.make_train_step(
         cfg, lr, bn, train_loop.StepConfig(
             compute_iou_metrics=not args.e2e, use_valid_weights=args.e2e))
-    if args.e2e:
+    if args.predict:
+        gen = torch.Generator().manual_seed(args.seed)
+        model = registry.get_model("frustum_pointnets_v2", cfg,
+                                   dtype=torch.bfloat16, device=dev,
+                                   generator=gen).eval()
+        chip_smoke._perturb_bn(model, gen)
+        batch = chip_smoke.SyntheticFrustums(nb, cfg, args.seed).get_batch(
+            list(range(nb)))
+        with torch.no_grad():
+            logits = model.seg_net(
+                torch.as_tensor(batch["points"], device=dev),
+                torch.as_tensor(batch["one_hot"], device=dev)).float()
+            model.seg_net.seg_out.bias[1] -= (logits[..., 1]
+                                              - logits[..., 0]).median()
+        predict = train_loop.make_predict_step(model, cfg)
+
+        def step():
+            predict(batch)
+    elif args.e2e:
         scene = depth_pipeline.scene_to_device(depth_pipeline.make_depth_scene(
             np.random.RandomState(args.seed), cfg, n_frames=nb // 4,
             boxes_per_frame=4, h=96, w=128)[0], dev)
@@ -116,7 +145,9 @@ def main() -> None:
     path = ("v1, end to end from depth maps" if args.e2e else "v1"
             if args.model == "v1" else "fused (T3D_FUSED_SA unset)"
             if args.fused else "T3D_FUSED_SA=0")
-    print(f"[{card}] train step B={nb}, {path}: {ms:.3f} ms a step "
+    what = "predict step" if args.predict else "train step"
+    print(f"[{card}] [{os.path.abspath(args.root)}] {what} B={nb}, {path}: "
+          f"{ms:.3f} ms a step "
           f"unprofiled ({nb * 1000.0 / ms:.1f} frustums/s); device time "
           f"{total / 1e3 / args.steps:.3f} ms a step, idle share "
           f"{1 - total / 1e3 / args.steps / ms:.3f}; {kernels // args.steps} "

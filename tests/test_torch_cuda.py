@@ -56,6 +56,15 @@ def _chain(g, dims, dev):
     (16, 256, 32, 0.2, (32, 32, 64)),
     (8, 128, 128, 1.6, (128, 128, 256)),
     (12, 200, 16, 0.5, (16, 24, 40, 8)),
+    # ragged chains (padded to 16 by the launcher), K = 24 and K = 1,
+    # every ball with one member, a last layer of 512, and the f32 kernel
+    # for inner layers wider than 128
+    (40, 200, 24, 0.5, (40, 64, 40)),
+    (40, 200, 1, 0.5, (64, 64, 128)),
+    (20, 256, 128, 1e-4, (64, 96, 128)),
+    (8, 128, 128, 1.6, (20, 36, 130)),
+    (16, 256, 64, 0.5, (64, 64, 512)),
+    (16, 256, 64, 0.5, (64, 160, 64)),
 ])
 def test_sa_infer_kernel_equals_plain(s, n, k, r, dims):
     _need_cuda()
@@ -359,6 +368,42 @@ def _run_train_kernels(b, n, s, r, k, dims, all_empty=False):
     assert after["sa_bwd_step0"] == before["sa_bwd_step0"] + 8
 
 
+@pytest.mark.parametrize("b,s,k,f_in,f_out", [
+    (3, 17, 128, 128, 256), (3, 17, 128, 128, 128), (3, 17, 128, 256, 256),
+    (5, 313, 16, 16, 16), (3, 157, 16, 256, 256), (3, 61, 80, 16, 256)])
+def test_sa_fwd_kernels_at_the_corners(b, s, k, f_in, f_out):
+    """K6 and K7 alone: 128 rows of 128 -> 256 and 128 -> 128 (two and
+    three ring stages), 256 -> 256 (W read through L2), the smallest tile
+    (K = 16, 16 -> 16, 8 centroids), 80 rows a centroid; odd centroid
+    counts leave a ragged last tile. z' within the limits, K7's extrema
+    those of its own z', the sums within 1e-4 and the same bits twice."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(b * s + k + f_in + f_out)
+    z = torch.randn(b, s, k, f_in, generator=g)
+    eff = torch.randint(1, k + 1, (b, s, 1), generator=g)
+    slot = (torch.arange(k) % eff)[..., None]
+    z = z.gather(2, slot.expand_as(z)).to(dev).bfloat16()  # rows repeat
+    pack = fused_sa._make_pack(
+        (torch.rand(f_in, generator=g) + 0.5).to(dev),
+        (torch.randn(f_in, generator=g) * 0.2).to(dev),
+        (torch.randn(f_in, generator=g) * 0.2).to(dev),
+        (torch.rand(f_in, generator=g) + 0.5).to(dev), 1e-3)
+    w = (torch.randn(f_in, f_out, generator=g) / f_in ** 0.5).to(dev)
+    bias = (torch.randn(f_out, generator=g) * 0.1).to(dev)
+    for last in (False, True):
+        ref = fused_sa.sa_fwd_step_plain(z, pack, w, bias, last)
+        got = fused_sa.sa_fwd_step_cuda(z, pack, w, bias, last)
+        again = fused_sa.sa_fwd_step_cuda(z, pack, w, bias, last)
+        torch.cuda.synchronize()
+        _close_bf16(got[0], ref[0])
+        assert _rel(got[1], ref[1]) <= 1e-4 and _rel(got[2], ref[2]) <= 1e-4
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        if last:
+            assert torch.equal(got[3], got[0].float().amax(dim=2))
+            assert torch.equal(got[4], got[0].float().amin(dim=2))
+
+
 @pytest.mark.parametrize("n,s,r,k,dims", TRAIN_SCALES[2:5])
 def test_sa_train_kernels_exact_on_integers(n, s, r, k, dims):
     """Integer-valued inputs, identity packs and weights in {-1, 0, 1}
@@ -432,6 +477,55 @@ def test_fused_chain_on_the_card_matches_the_cpu():
         torch.testing.assert_close(a.cpu(), b_, atol=2e-3, rtol=0)
     for a, b_ in zip(card[1 + 2 * len(dims):-2], cpu[1 + 2 * len(dims):-2]):
         assert _rel(a.float().cpu(), b_.float()) <= 0.05
+
+
+def _ragged_v2(model):
+    """F-PointNet v2 with two SA scales of shapes outside the v2 presets:
+    the seg net's first scale groups K = 24 points (the unfused branch,
+    K3/K4) and its second has an inner layer of 40 channels (K5-K9 with
+    the widths padded to 48 on the card)."""
+    from transferable3d_torch.models import pointnet2
+
+    sa1 = model.seg_net.sa1
+    dev = next(model.parameters()).device
+    for i, (feats, k) in enumerate((((40, 40, 64), 24),
+                                    ((64, 40, 128), 64))):
+        old = getattr(sa1, f"mlp_{i}")
+        setattr(sa1, f"mlp_{i}", pointnet2.GroupedPointMLP(
+            old.cin - 3, feats, old.radius, k, dtype=old.dtype, device=dev,
+            generator=torch.Generator().manual_seed(i)))
+
+
+def test_ragged_v2_trains_a_step_on_the_card_as_on_the_cpu():
+    """A bf16 v2 model with a K = 24 scale and a 40-wide layer trains one
+    step on the card through the route `fused_route` pins (one scale
+    rerouted to the unfused branch, the 40-wide one padded), against the
+    CPU's step at phase 14's limits (`chip_smoke.FUSED_COS`, loss 2%),
+    with the mask and the box net's input pinned as chip_smoke pins them."""
+    _need_cuda()
+    import chip_smoke
+    from transferable3d_torch.core import bins
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.train import schedules
+
+    cfg = bins.SUNRGBD
+    initial = registry.get_model(
+        "frustum_pointnets_v2", cfg, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(1))
+    _ragged_v2(initial)
+    b = chip_smoke.B
+    one_step = chip_smoke.SmallStep(
+        cfg, initial, chip_smoke.train_batch(cfg),
+        schedules.exponential_staircase_lr(batch_size=b),
+        schedules.bn_momentum_schedule(batch_size=b), 0,
+        torch.device("cuda"), adapt=_ragged_v2)
+    before = _build.LAUNCHES["fused_sa_rerouted"]
+    on_card = one_step(torch.bfloat16, "cuda", True)
+    assert _build.LAUNCHES["fused_sa_rerouted"] > before
+    on_cpu = one_step(torch.bfloat16, "cpu", True)
+    assert torch.equal(on_card[2], on_cpu[2])
+    res = chip_smoke.compare(on_card, on_cpu)
+    assert not chip_smoke.failed(res, chip_smoke.FUSED_COS), res
 
 
 def test_sa_train_kernels_refuse_bad_inputs():

@@ -216,3 +216,76 @@ def test_feature_propagation():
         got = port(*map(t, (xyz_to, xyz_from, f_to, f_from)))
     np.testing.assert_allclose(n(got), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+# --- K2's plan and the launcher's padding ----------------------------------
+# (K, widths) of the eight grouped SA scales of F-PointNet v2, and ragged
+# chains: K = 24 with a width of 40, K = 1, widths not multiples of 16, a
+# last layer wider than any inner one, and inner layers wider than 128.
+V2_INFER_SHAPES = [(32, (32, 32, 64)), (64, (64, 64, 128)),
+                   (128, (64, 96, 128)), (64, (64, 64, 128)),
+                   (64, (128, 128, 256)), (128, (128, 128, 256)),
+                   (64, (64, 64, 128)), (64, (128, 128, 256))]
+RAGGED_INFER_SHAPES = [(24, (40, 40, 40)), (24, (40, 64, 40)),
+                       (1, (64, 64, 128)), (16, (16, 24, 40, 8)),
+                       (128, (20, 36, 130)), (64, (64, 64, 512)),
+                       (64, (64, 160, 64)), (16, (32, 256, 256, 32))]
+
+
+@pytest.mark.parametrize("k,dims", V2_INFER_SHAPES + RAGGED_INFER_SHAPES)
+def test_infer_plan_fits_every_shape(k, dims):
+    """The tensor-core kernel wherever the inner layers, padded to 16,
+    are at most 128 wide and the weights fit: at every v2 scale and the
+    ragged chains; its shared memory as the kernel lays it out (weights
+    with 8 bf16 of padding a row, a | c | b, each of 16 warps' ring of 64
+    members and running max and min of the last layer's z) within the
+    card's 232,448 bytes. The f32
+    kernel takes the rest."""
+    plan = tfs.sa_infer_plan(k, dims)
+    assert tfs.sa_infer_smem_bytes(k, dims) == plan.smem
+    padded = tuple(-(-f // 16) * 16 for f in dims)
+    if max(padded[:-1]) <= 128:
+        assert plan.mma and plan.dims == padded
+        w = sum(padded[d] * (padded[d + 1] + 8) * 2
+                for d in range(len(dims) - 1))
+        assert plan.smem == (w + 12 * sum(padded)
+                             + 16 * (64 + 2 * padded[-1]) * 4)
+        assert tfs.sa_infer_layout_bytes(padded) == (
+            w, 12 * sum(padded), plan.smem)
+    else:
+        assert not plan.mma and plan.dims == dims
+    assert plan.smem <= 232448
+
+
+@pytest.mark.parametrize("k,dims", RAGGED_INFER_SHAPES[:5])
+def test_infer_padding_changes_no_pooled_value(k, dims):
+    """K2's padding to multiples of 16 (zero channels of pf and qc, which
+    the launcher appends; zero weights and biases and a = c = 0, which the
+    kernel writes into shared memory) applied to the plain twin: the first
+    F_{L-1} pooled channels are bit-identical to the unpadded twin's, the
+    padded ones zero."""
+    g = torch.Generator().manual_seed(k + sum(dims))
+    b, n, s = 3, 200, 40
+    xyz = torch.rand(b, n, 3, generator=g) * 2
+    cent = xyz[:, :s].clone()
+    cent[:, ::5] += 100.0  # empty balls
+    pf = torch.randn(b, n, dims[0], generator=g).bfloat16()
+    qc = torch.randn(b, s, dims[0], generator=g).bfloat16()
+    packs = [tfs._make_pack(torch.rand(f, generator=g) + 0.5,
+                            torch.randn(f, generator=g) * 0.2,
+                            torch.randn(f, generator=g) * 0.2,
+                            torch.rand(f, generator=g) + 0.5, EPS)
+             for f in dims]
+    ws = [torch.randn(dims[i], dims[i + 1], generator=g) / dims[i] ** 0.5
+          for i in range(len(dims) - 1)]
+    bs = [torch.randn(dims[i + 1], generator=g) * 0.1
+          for i in range(len(dims) - 1)]
+    ref = tfs.sa_infer_plain(cent, xyz, pf, qc, 0.5, k, packs, ws, bs)
+    kd = tfs.sa_infer_plan(k, dims).dims
+    got = tfs.sa_infer_plain(
+        cent, xyz, tfs._pad_to(pf, kd[0]), tfs._pad_to(qc, kd[0]), 0.5, k,
+        [tfs._pad_to(p, f) for p, f in zip(packs, kd)],
+        *tfs._pad_dense(kd, ws, bs))
+    assert got.shape[-1] == kd[-1] and (ref != 0).float().mean() > 0.3
+    assert torch.equal(got[..., :dims[-1]], ref)
+    assert not bool(got[..., dims[-1]:].any())

@@ -314,3 +314,97 @@ def test_module_fused_train_takes_the_training_kernels_path(monkeypatch):
     out = port(t(new_xyz), t(xyz), t(feats), MOMENTUM)
     assert seen == [1] and out.requires_grad
     assert not port.bn_0.mean.requires_grad
+
+
+# --- the route of a scale on the fused branch, and the card's padding ------
+
+V2_TRAIN_SHAPES = [(32, (32, 32, 64)), (64, (64, 64, 128)),
+                   (128, (64, 96, 128)), (64, (128, 128, 256)),
+                   (128, (128, 128, 256))]
+
+
+@pytest.mark.parametrize("k,widths,passes,fused", [
+    *((k, w, True, True) for k, w in V2_TRAIN_SHAPES),
+    (64, (64, 40, 128), True, True),      # a width of 40: padded to 48
+    (16, (16, 24, 40), True, True),
+    (24, (40, 40, 64), True, False),      # K = 24: not a 16-row multiple
+    (24, (32, 32, 64), True, False),
+    (256, (32, 32, 64), True, False),     # K > 128
+    (64, (64, 264, 64), True, False),     # a width > 256
+    (64, (256, 256), True, False),        # dW of 65,536 entries
+    (24, (40, 40, 64), False, True),      # eval without a gradient: K2
+    (1, (40, 64, 40), False, True)])
+def test_fused_route_of_preset_and_ragged_shapes(k, widths, passes, fused):
+    """`fused_route` decides from the shapes alone: the v2 presets and
+    any width (padded on the card) train on K5-K9; K not a multiple of 16
+    or above 128, widths above 256 and dW above 32,768 entries train on
+    the unfused branch (K3/K4); inference without a gradient is K2 for
+    every chain."""
+    assert tfs.fused_route(k, widths, passes) is fused
+
+
+def test_padded_chain_is_the_chain(monkeypatch):
+    """`_padded_chain`, which the card runs for widths that are not
+    multiples of 16, on the CPU's plain twins: pooled bit-identical to
+    the unpadded chain; the batch statistics and every gradient within
+    f32 reordering (the twins' sums over a wider tensor take another
+    order)."""
+    cent, xyz, args, _, weight = _setup(5)
+    outs = []
+    for padded in (False, True):
+        pargs = _port_args(args, grad=True)
+        call = (t(cent), t(xyz), *pargs, R, K, EPS, True, None)
+        out = (tfs._padded_chain(*call, [16, 24, 40]) if padded
+               else tfs.fused_grouped_chain(*call))
+        (out[0].float() * t(weight)).sum().backward()
+        outs.append((out, [x.grad for x in pargs[:2]]
+                     + [y.grad for grp in pargs[2:] for y in grp]))
+    (ref, gref), (got, ggot) = outs
+    assert got[0].shape == ref[0].shape and torch.equal(got[0], ref[0])
+    for a, b_ in zip(got[1] + got[2], ref[1] + ref[2]):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6)
+    for a, b_ in zip(ggot, gref):
+        assert a.shape == b_.shape
+        assert float((a.float() - b_.float()).norm()) <= (
+            1e-3 * float(b_.float().norm()) + 1e-6)
+
+
+def test_module_reroutes_shapes_the_training_kernels_do_not_take(
+        monkeypatch):
+    """A bf16 GroupedPointMLP with K = 24 in train mode: the fused branch
+    sends it to the unfused one (the same output as T3D_FUSED_SA=0),
+    counts it in `_build.LAUNCHES["fused_sa_rerouted"]` and warns once;
+    in eval without a gradient it stays on the fused branch (K2)."""
+    from transferable3d_torch.ops import _build
+
+    _, params, stats, (new_xyz, xyz, feats) = _flax_module(6)
+    args = (t(new_xyz), t(xyz), t(feats), MOMENTUM)
+
+    def module():
+        return bridged(tpn2.GroupedPointMLP(5, FEATS, R, 24,
+                                            dtype=torch.bfloat16,
+                                            device="cpu"),
+                       params, stats).train()
+
+    monkeypatch.setenv("T3D_FUSED_SA", "0")
+    want = module()(*args)
+    monkeypatch.delenv("T3D_FUSED_SA")
+    monkeypatch.setattr(tfs, "_REROUTED_SHAPES", set())
+    before = _build.LAUNCHES["fused_sa_rerouted"]
+    with pytest.warns(UserWarning, match="K=24"):
+        got = module()(*args)
+    assert torch.equal(got, want)
+    assert _build.LAUNCHES["fused_sa_rerouted"] == before + 1
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        module()(*args)  # the same shape again: counted, not warned
+        with torch.no_grad():
+            seen = []
+            orig = tfs.sa_infer
+            monkeypatch.setattr(tfs, "sa_infer",
+                                lambda *a: seen.append(1) or orig(*a))
+            module().eval()(*args)
+    assert seen == [1]
+    assert _build.LAUNCHES["fused_sa_rerouted"] == before + 2

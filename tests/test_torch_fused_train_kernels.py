@@ -449,3 +449,86 @@ def test_smem_budget_of_the_largest_path_scale():
     # seg-SA2 scale 3: K=128, F 128 -> 256 (one block of K8/K9, of K6/K7).
     assert tfs.sa_bwd_smem_bytes(128, 128, 256) < 232448
     assert tfs.sa_fwd_smem_bytes(128, 128, 256) < 232448
+
+
+# K, F_in, F_out, last: K6's (last False) and K7's (last True) launches of
+# the eight grouped set-abstraction scales of F-PointNet v2, and corners:
+# the smallest tile, 48 and 80 rows a centroid, and the widest layers.
+FWD_PATH_SHAPES = [(32, 32, 32, False), (64, 64, 64, False),
+                   (128, 64, 96, False), (64, 128, 128, False),
+                   (128, 128, 128, False), (32, 32, 64, True),
+                   (64, 64, 128, True), (128, 96, 128, True),
+                   (64, 128, 256, True), (128, 128, 256, True)]
+FWD_CORNER_SHAPES = [(k, fi, fo, last)
+                     for k, fi, fo in ((16, 16, 16), (48, 96, 96),
+                                       (80, 16, 256), (128, 256, 256),
+                                       (16, 256, 256), (112, 256, 128))
+                     for last in (False, True)]
+
+
+@pytest.mark.parametrize("k,f_in,f_out,last",
+                         FWD_PATH_SHAPES + FWD_CORNER_SHAPES)
+def test_fwd_plan_fits_every_shape_the_launcher_admits(k, f_in, f_out, last):
+    """The tile plan of K6/K7: whole centroids, at most 128 rows; one to
+    three stages; a block's shared memory, as the kernel lays it out
+    (`fwd_layout`: the z_prev ring, W, the z' staging tile, a | c | b and
+    K7's extrema of 8 row blocks), within the card's 232,448 bytes; and
+    nothing larger would have fit (W resident before a stage)."""
+    plan = tfs.sa_fwd_plan(k, f_in, f_out, last)
+    rows = plan.ct * k
+    assert plan.ct == max(1, 128 // k) and rows <= 128
+    assert 1 <= plan.stages <= 3
+    assert plan.smem == (plan.stages * rows * (f_in + 8) * 2
+                         + (f_in * (f_out + 8) * 2 if plan.w_smem else 0)
+                         + rows * (f_out + 8) * 2 + (2 * f_in + f_out) * 4
+                         + (64 * f_out if last else 0))
+    assert plan.smem == tfs.sa_fwd_layout_bytes(
+        k, f_in, f_out, plan.ct, plan.stages, plan.w_smem, last)
+    assert plan.smem <= SMEM_LIMIT
+    if plan.stages < 3:
+        assert tfs.sa_fwd_layout_bytes(k, f_in, f_out, plan.ct,
+                                       plan.stages + 1, plan.w_smem,
+                                       last) > SMEM_LIMIT
+    if not plan.w_smem:
+        assert tfs.sa_fwd_layout_bytes(k, f_in, f_out, plan.ct, 1, True,
+                                       last) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,f_in,f_out,last,ct,stages,w_smem", [
+    (32, 32, 32, False, 4, 3, True), (32, 32, 64, True, 4, 3, True),
+    (64, 64, 128, True, 2, 3, True), (128, 96, 128, True, 1, 3, True),
+    (64, 128, 128, False, 2, 3, True), (64, 128, 256, True, 2, 2, True),
+    (128, 128, 256, True, 1, 2, True), (128, 256, 256, True, 1, 2, False)])
+def test_fwd_plan_of_the_path_shapes(k, f_in, f_out, last, ct, stages,
+                                     w_smem):
+    """The plans sa_train_fwd.cu's design states: 128-row tiles of whole
+    centroids, a ring of three stages with W resident wherever it fits,
+    two at 128 -> 256, and W through L2 only at 256 -> 256."""
+    plan = tfs.sa_fwd_plan(k, f_in, f_out, last)
+    assert (plan.ct, plan.stages, plan.w_smem) == (ct, stages, w_smem)
+
+
+@pytest.mark.parametrize("f_in,f_out", [(24, 40), (16, 24), (40, 64)])
+def test_fwd_step_padding_changes_no_z(f_in, f_out):
+    """The card's padding of a training chain (`_padded_chain`: zero
+    channels of z, zero rows and columns of W, zero biases, and gamma =
+    beta = 0 there, so a = c = 0) applied to K6/K7's plain twin: z' on the
+    real channels bit-identical to the unpadded twin's, zero on the
+    padding, and K7's extrema likewise."""
+    g = torch.Generator().manual_seed(f_in * f_out)
+    z = torch.randn(2, 8, K, f_in, generator=g).bfloat16()
+    pack = tfs._make_pack(torch.rand(f_in, generator=g) + 0.5,
+                          torch.randn(f_in, generator=g) * 0.2,
+                          torch.randn(f_in, generator=g) * 0.2,
+                          torch.rand(f_in, generator=g) + 0.5, EPS)
+    w = torch.randn(f_in, f_out, generator=g) / f_in ** 0.5
+    b = torch.randn(f_out, generator=g) * 0.1
+    ref = tfs.sa_fwd_step_plain(z, pack, w, b, True)
+    pi, po = -(-f_in // 16) * 16, -(-f_out // 16) * 16
+    (wp,), (bp,) = tfs._pad_dense((pi, po), [w], [b])
+    got = tfs.sa_fwd_step_plain(tfs._pad_to(z, pi), tfs._pad_to(pack, pi),
+                                wp, bp, True)
+    assert torch.equal(got[0][..., :f_out], ref[0])
+    assert not bool(got[0][..., f_out:].any())
+    for i in (3, 4):
+        assert torch.equal(got[i][..., :f_out], ref[i])

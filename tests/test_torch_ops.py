@@ -183,16 +183,19 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
-    """T3D_KERNEL_CLOCKS=1 adds the define that compiles K8/K9's phase
-    clocks in, under another library name; unset, the flags are the
-    plain ones."""
+    """T3D_KERNEL_CLOCKS=1 adds the define that compiles the phase clocks
+    of K2, K6/K7 and K8/K9 in, under another library name; unset, the
+    flags are the plain ones."""
     from transferable3d_torch.ops import _build
 
     monkeypatch.delenv(_build.CLOCKS_ENV, raising=False)
     assert _build._flags() == _build.NVCC_FLAGS
     plain = _build._sources()[1]
     monkeypatch.setenv(_build.CLOCKS_ENV, "1")
-    assert _build._flags() == _build.NVCC_FLAGS + ["-DT3D_BWD_CLOCKS"]
+    assert _build._flags() == _build.NVCC_FLAGS + ["-DT3D_KERNEL_CLOCKS"]
     assert _build._sources()[1] != plain
-    src = (_build.SRC_DIR / "sa_train_bwd.cu").read_text()
-    assert "#ifdef T3D_BWD_CLOCKS" in src and "t3d_sa_bwd_clocks" in src
+    for name, fn in (("sa_train_bwd.cu", "t3d_sa_bwd_clocks"),
+                     ("sa_train_fwd.cu", "t3d_sa_fwd_clocks"),
+                     ("sa_infer.cu", "t3d_sa_infer_clocks")):
+        src = (_build.SRC_DIR / name).read_text()
+        assert "#ifdef T3D_KERNEL_CLOCKS" in src and fn in src

@@ -123,14 +123,15 @@
 
 #include "ball_select.cuh"
 #include "sa_train.cuh"
+#include "tile_ops.cuh"
 
 // Phase clocks, for `scripts/torch_time_sa_bwd.py --phases` only. Built
-// with -DT3D_BWD_CLOCKS, thread 0 of block 0 adds to t3d_bwd_clk[i] the
+// with -DT3D_KERNEL_CLOCKS, thread 0 of block 0 adds to t3d_bwd_clk[i] the
 // cycles it spent between mark i - 1 and mark i of every tile (0: the
 // ring's wait, 1: the first pass, 2: the second, 3: the products, 4: the
 // way out) and counts its tiles in t3d_bwd_clk[7]. Otherwise the marks are
 // empty.
-#ifdef T3D_BWD_CLOCKS
+#ifdef T3D_KERNEL_CLOCKS
 __device__ unsigned long long t3d_bwd_clk[8];
 #define T3D_CLK_START long long clk_prev = clock64();
 #define T3D_CLK(i)                                              \
@@ -150,7 +151,20 @@ namespace {
 using t3d::bf16;
 using t3d::kPad;
 using t3d::tof;
-typedef __nv_bfloat162 bf162;
+using t3d::bf16_round2;
+using t3d::bf162;
+using t3d::copy_rows;
+using t3d::cp16;
+using t3d::cp_commit;
+using t3d::cp_wait;
+using t3d::ld2;
+using t3d::lds2;
+using t3d::ldsm4;
+using t3d::ldsm4t;
+using t3d::mma16816;
+using t3d::pack2;
+using t3d::st2;
+using t3d::unpack2;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -212,72 +226,10 @@ __host__ __device__ inline Layout bwd_layout(int K, int Fj, int Fj1, int ct,
   return L;
 }
 
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// `rows` rows of F bf16 from a dense global run into padded rows.
-__device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
-                                          int rows, int F) {
-  const int cpr = F >> 3, total = rows * cpr;
-  // chunk i = r * cpr + g, stepped by kThreads without a division
-  int r = threadIdx.x / cpr, g = threadIdx.x - r * cpr;
-  const int dr = kThreads / cpr, dg = kThreads - dr * cpr;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    cp16(dst + (size_t)r * ld + g * 8, src + (size_t)i * 8);
-    r += dr;
-    g += dg;
-    if (g >= cpr) {
-      g -= cpr;
-      ++r;
-    }
-  }
-}
-
 __device__ __forceinline__ void copy_flat(bf16* dst, const bf16* src,
                                           int elems) {
   for (int i = threadIdx.x * 8; i < elems; i += kThreads * 8)
     cp16(dst + i, src + i);
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Four f32 atomic adds to 16-byte aligned device memory, as one request
@@ -293,58 +245,9 @@ __device__ __forceinline__ void add4(float* at, float4 v) {
 #endif
 }
 
-__device__ __forceinline__ bool lane_id_bit(int bit) {
-  return (threadIdx.x >> bit) & 1;
-}
-
-// A pair of bf16 as two f32: a shift and a mask.
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
-
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return unpack2(*reinterpret_cast<const uint32_t*>(p));
-}
-
 // Four channels of a row (8-byte aligned) as two packed pairs.
 __device__ __forceinline__ uint2 lds8(const bf16* p) {
   return *reinterpret_cast<const uint2*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float x, float y) {
-  const bf162 b = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
-
-__device__ __forceinline__ void st2(bf16* p, float x, float y) {
-  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// Four values a lane, each summed over the 8 lanes l, l + 4, ..., l + 28
-// that hold one column pair of an accumulator block, in a fixed order and
-// four shuffles: lanes trade halves, so that lane l + 8 i of the lanes
-// below 16 + 4 ends with the sum of v[i]. Returns the sum of v[((lane >>
-// 4) & 1) * 2 + ((lane >> 3) & 1)], complete in every lane.
-__device__ __forceinline__ float col_sum4(const float (&v)[4]) {
-  const unsigned full = t3d::kFullMask;
-  const bool hi = lane_id_bit(4), mid = lane_id_bit(3);
-  float a = hi ? v[2] : v[0], b = hi ? v[3] : v[1];
-  a = __fadd_rn(a, __shfl_xor_sync(full, hi ? v[0] : v[2], 16));
-  b = __fadd_rn(b, __shfl_xor_sync(full, hi ? v[1] : v[3], 16));
-  float keep = mid ? b : a;
-  keep = __fadd_rn(keep, __shfl_xor_sync(full, mid ? a : b, 8));
-  return __fadd_rn(keep, __shfl_xor_sync(full, keep, 4));
-}
-
-__device__ __forceinline__ float2 lds2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// Both values rounded to bf16 by one conversion.
-__device__ __forceinline__ float2 bf16_round2(float x, float y) {
-  const bf162 b = __floats2bfloat162_rn(x, y);
-  return unpack2(*reinterpret_cast<const uint32_t*>(&b));
 }
 
 // t3d::bn_relu of a pair of channels.
@@ -480,26 +383,26 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
     const int c0 = T * ct, nval = min(ct, p.ncent - c0), rows = nval * K;
     unsigned char* st = smem + L.stage * s;
     if (need_z1)
-      copy_rows(reinterpret_cast<bf16*>(st + L.a1), ld1,
+      copy_rows<kThreads>(reinterpret_cast<bf16*>(st + L.a1), ld1,
                 p.z_j1 + (size_t)c0 * K * Fj1, rows, Fj1);
     bf16* x = reinterpret_cast<bf16*>(st + L.x);
     if (top) {
       copy_flat(x, p.pooled + (size_t)c0 * Fj1, nval * Fj1);
       copy_flat(x + ct * Fj1, p.dpooled + (size_t)c0 * Fj1, nval * Fj1);
     } else {
-      copy_rows(x, ld1, p.dy_j1 + (size_t)c0 * K * Fj1, rows, Fj1);
+      copy_rows<kThreads>(x, ld1, p.dy_j1 + (size_t)c0 * K * Fj1, rows, Fj1);
     }
   };
   auto load_z = [&](int T, int s) {
     if (T >= ntiles) return;
     const int c0 = T * ct, rows = min(ct, p.ncent - c0) * K;
-    copy_rows(stage_ptr(s), ldj, p.z_j + (size_t)c0 * K * Fj, rows, Fj);
+    copy_rows<kThreads>(stage_ptr(s), ldj, p.z_j + (size_t)c0 * K * Fj, rows, Fj);
     if (kStep0)
       copy_flat(reinterpret_cast<bf16*>(smem + L.stage * s + L.q),
                 p.qc + (size_t)c0 * Fj, rows / K * Fj);
   };
 
-  if (wsmem) copy_rows(wsm, ld1, p.wb, Fj, Fj1);
+  if (wsmem) copy_rows<kThreads>(wsm, ld1, p.wb, Fj, Fj1);
   for (int s = 0; s < stages; ++s) {
     const int T = blockIdx.x + s * gridDim.x;
     load1(T, s);
@@ -798,7 +701,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
                 v[2] = __fadd_rn(v[2], __fmul_rn(dx, xx));
                 v[3] = __fadd_rn(v[3], __fmul_rn(dy, xy));
               }
-              const float sum = col_sum4(v);
+              const float sum = t3d::col_reduce4(v);
               if (!(lane & 4)) {  // the one owner of its slot of cs
                 float* at = cs + (((lane >> 4) & 1) * kMaxWm + wm) * Fj + col +
                             ((lane >> 3) & 1);
@@ -968,7 +871,7 @@ bool bad_tile(int k, int f) {
 
 }  // namespace
 
-#ifdef T3D_BWD_CLOCKS
+#ifdef T3D_KERNEL_CLOCKS
 // Copies the phase clocks to `out` (8 values) and sets them to zero.
 extern "C" int t3d_sa_bwd_clocks(unsigned long long* out) {
   const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};

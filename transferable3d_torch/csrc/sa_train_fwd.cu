@@ -23,29 +23,85 @@
 // What bounds them: K5 writes [B, S, K, F0] bf16 and reads 12 KB of xyz
 // per centroid from L2: device-memory bytes. K6/K7 read [rows, F_in] and
 // write [rows, F_out] bf16 around F_in * F_out multiply-adds a row: at
-// F = 64..256 that is 21..85 operations a byte, below the card's 295, so
-// bytes bound them too, provided the product runs on the tensor cores.
-// The design: the product is `wmma` 16x16x16 bf16 fragments with f32
-// accumulators (the operands are bf16 by definition, so every product is
-// exact and only the f32 sum's order differs from the plain twin's); a
-// block holds one centroid's h and z' tiles in shared memory, a warp owns
-// 16 output channels and keeps the weight fragment across the row
-// fragments; all sums are deterministic (see sa_train.cuh). TMA, wgmma
-// and a pipeline over centroids are later work.
+// F = 32..256 that is 11..85 operations a byte, below the card's 295, so
+// bytes bound them too, provided the product runs on the tensor cores and
+// the elementwise work around it stays a few instructions an element.
+//
+// K6/K7's design (the tools of sa_train_bwd.cu):
+//   * A tile is `ct` whole centroids, ct * K <= 128 rows (4 centroids at
+//     K = 32, 2 at K = 64); the last tile of a launch may hold fewer. A
+//     persistent grid of one 512-thread block an SM walks the tiles.
+//   * z_prev tiles come in as 16-byte `cp.async` copies into padded
+//     shared-memory rows, through a ring of up to three stages: a tile's
+//     loads are issued as soon as the products have read its stage.
+//   * bf16(W) stays in shared memory for the block's walk where it fits
+//     (the widest corner, 256 -> 256 at 128 rows, reads W^T through L2).
+//   * Products are `mma.sync.m16n8k16` from `ldmatrix` operands: warp
+//     (wm, wn) of the 8 x 2 grid takes 16 rows and half of the columns, so
+//     every warp has work at every width. BN and ReLU are applied to the A
+//     fragment in registers on its way into the product: once for every
+//     warp and 64-column chunk that reads it (four times an element at
+//     128 -> 256), yet an in-place pass over the tile instead, once an
+//     element, was slower (K6 1.77-1.87 ms a step against 1.57-1.62): the
+//     pass is a phase of its own, bound by its latency, while on the
+//     fragment the same work hides behind the products'.
+//   * The epilogue stays in registers: bias, the bf16 rounding, the
+//     columns' sum and sum of squares over the warp's 16 rows by four
+//     shuffles (t3d::col_reduce4), added per owner lane across the walk;
+//     K7's max and min of each 16-row block the same way, combined per
+//     centroid (its K rows lie in one tile) after the tile's barrier.
+//   * z' is staged in shared memory and leaves as 16-byte stores while
+//     the next tile's loads fly.
+// Shared memory (`fwd_layout`, mirrored by `sa_fwd_layout_bytes` in
+// ops/fused_sa.py, which plans ct, the stages and W's place).
+//
+// Whole-grid sums (sa_train.cuh): every partial has one owner (a lane's
+// register across the walk, then the row blocks in order, then the blocks
+// in order by a second launch): the same bits run after run for one grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
 #include "ball_select.cuh"
 #include "sa_train.cuh"
+#include "tile_ops.cuh"
+
+// Phase clocks, for `scripts/torch_time_sa_fwd.py --phases` only. Built
+// with -DT3D_KERNEL_CLOCKS, thread 0 of block 0 adds to t3d_fwd_clk[i] the
+// cycles it spent between mark i - 1 and mark i of every tile of K6/K7 (0:
+// the ring's wait, 1: the products with their epilogue, 2: the way out)
+// and counts its tiles in t3d_fwd_clk[7]. Otherwise the marks are empty.
+#ifdef T3D_KERNEL_CLOCKS
+__device__ unsigned long long t3d_fwd_clk[8];
+#define T3D_CLK_START long long clk_prev = clock64();
+#define T3D_CLK(i)                                              \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                    \
+    const long long clk_now = clock64();                        \
+    t3d_fwd_clk[i] += (unsigned long long)(clk_now - clk_prev); \
+    t3d_fwd_clk[7] += (i) == 2;                                 \
+    clk_prev = clk_now;                                         \
+  }
+#else
+#define T3D_CLK_START
+#define T3D_CLK(i)
+#endif
 
 namespace {
 
-using namespace nvcuda;
 using t3d::bf16;
+using t3d::bn_relu_pack;
+using t3d::copy_rows;
+using t3d::cp_commit;
+using t3d::cp_wait;
 using t3d::kPad;
+using t3d::lds2;
+using t3d::ldsm4;
+using t3d::ldsm4t;
+using t3d::mma16816;
+using t3d::pack2;
 using t3d::tof;
+using t3d::unpack2;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -101,110 +157,266 @@ sa_extract_kernel(const float* __restrict__ cent,
 
 // ----------------------------------------------------------- K6, K7 ------
 
-inline size_t fwd_smem_bytes(int k, int fin, int fout) {
-  return (size_t)k * (fin + kPad) * 2 + (size_t)k * (fout + kPad) * 2 +
-         kWarps * 256 * 4 + kThreads * 4;
+constexpr int kFwdThreads = 512;
+constexpr int kFwdWm = 8;      // 16-row blocks of a 128-row tile
+static_assert(kFwdThreads / 32 == 2 * kFwdWm, "an 8 x 2 grid of warps");
+constexpr int kFwdMaxStages = 3;
+constexpr int kChunk = 8;      // 8-column accumulator tiles a warp holds
+constexpr int kMaxNt = 16;     // 8-column tiles a warp owns (F_out <= 256)
+constexpr size_t kSmemLimit = 232448;
+
+struct FwdArgs {
+  const bf16* z_prev;  // [C, K, Fin]
+  const float* pack;   // [6, Fin]: rows a, c
+  const float* w;      // W [Fin, Fout] f32, when W stays in shared memory
+  const bf16* wt;      // else bf16(W)^T [Fout, Fin], read through L2
+  const float* bias;   // [Fout]
+  bf16* z_next;        // [C, K, Fout]
+  float* partials;     // [grid, 2, Fout]
+  float* zmax;         // K7: [C, Fout]
+  float* zmin;         // K7: [C, Fout]
+  int ncent, K, Fin, Fout;
+  int ct, stages, wsmem;  // the launcher's plan
+};
+
+// Byte offsets of the shared-memory buffers (R = ct * K rows, pad = 8
+// bf16 a row): `stages` z_prev tiles of R (Fin + 8) 2 bytes, bf16(W) Fin
+// (Fout + 8) 2 if it stays, z' R (Fout + 8) 2, a | c | b (2 Fin + Fout) 4
+// and, in K7, the 16-row blocks' extrema 2 x 8 x Fout 4.
+struct FwdLayout {
+  size_t tz, w, out, pk, ext, total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int K, int Fin, int Fout,
+                                                int ct, int stages, int wsmem,
+                                                int last) {
+  FwdLayout L;
+  const size_t R = (size_t)ct * K;
+  L.tz = R * (Fin + kPad) * 2;
+  L.w = L.tz * stages;
+  L.out = L.w + (wsmem ? (size_t)Fin * (Fout + kPad) * 2 : 0);
+  L.pk = L.out + R * (Fout + kPad) * 2;
+  L.ext = L.pk + (size_t)(2 * Fin + Fout) * 4;
+  L.total = L.ext + (last ? (size_t)2 * kFwdWm * Fout * 4 : 0);
+  return L;
 }
 
+__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// A tile is `ct` whole centroids (R = ct * K <= 128 rows). Warp (wm, wn)
+// computes rows 16 wm .. 16 wm + 15 and the columns of half wn of z', in
+// chunks of 8 accumulator tiles; the A operand is BN + ReLU of z_prev,
+// applied to the `ldmatrix` fragment in registers.
 template <bool kLast>
-__global__ void __launch_bounds__(kThreads)
-sa_fwd_step_kernel(const bf16* __restrict__ z_prev,
-                   const float* __restrict__ pack,
-                   const bf16* __restrict__ wb,
-                   const float* __restrict__ bias, bf16* __restrict__ z_next,
-                   float* __restrict__ partials, float* __restrict__ zmax,
-                   float* __restrict__ zmin, int ncent, int K, int Fin,
-                   int Fout) {
+__global__ void __launch_bounds__(kFwdThreads, 1)
+sa_fwd_step_kernel(FwdArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = Fin + kPad, ldz = Fout + kPad;
-  bf16* h = reinterpret_cast<bf16*>(smem);                 // [K][ldh]
-  bf16* zn = h + (size_t)K * ldh;                          // [K][ldz]
-  float* patch = reinterpret_cast<float*>(zn + (size_t)K * ldz);
-  float* red = patch + kWarps * 256;                       // [kThreads]
+  const int K = p.K, Fin = p.Fin, Fout = p.Fout, ct = p.ct;
+  const int stages = p.stages, ldi = Fin + kPad, ldo = Fout + kPad;
+  const bool wsmem = p.wsmem != 0;
+  const FwdLayout L = fwd_layout(K, Fin, Fout, ct, stages, p.wsmem, kLast);
+  bf16* wsm = reinterpret_cast<bf16*>(smem + L.w);     // [Fin][ldo]
+  bf16* outs = reinterpret_cast<bf16*>(smem + L.out);  // [R][ldo]
+  float* pa = reinterpret_cast<float*>(smem + L.pk);   // a [Fin]
+  float* pc = pa + Fin;                                // c [Fin]
+  float* pb = pc + Fin;                                // bias [Fout]
+  float* ext = reinterpret_cast<float*>(smem + L.ext);  // [2][kFwdWm][Fout]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* pa = pack;
-  const float* pc = pack + Fin;
-  const int nmi = K / 16, nni = Fout / 16, nkk = Fin / 16;
-  const t3d::Own o = t3d::own(Fout);
-  float s = 0.0f, q = 0.0f;
+  const int wm = warp % kFwdWm, wn = warp / kFwdWm;
+  const int lrow = lane >> 2, lcol = (lane & 3) * 2;
+  const int ntn = Fout / 16, nbase = wn * (Fout / 2), nkk = Fin / 16;
+  const int ntiles = (p.ncent + ct - 1) / ct;
 
-  for (int c = blockIdx.x; c < ncent; c += gridDim.x) {
-    // h = relu(BN(z_prev)) for the K rows of this centroid
-    const bf16* zp = z_prev + (size_t)c * K * Fin;
-    for (int e = tid; e < K * Fin; e += kThreads) {
-      const int k = e / Fin, f = e - k * Fin;
-      h[k * ldh + f] =
-          __float2bfloat16_rn(t3d::bn_relu(tof(zp[e]), pa[f], pc[f]));
+  for (int i = tid; i < Fin; i += kFwdThreads) {
+    pa[i] = p.pack[i];
+    pc[i] = p.pack[Fin + i];
+  }
+  for (int i = tid; i < Fout; i += kFwdThreads) pb[i] = p.bias[i];
+  auto load = [&](int T, int s) {
+    if (T >= ntiles) return;
+    const int c0 = T * ct, rows = min(ct, p.ncent - c0) * K;
+    copy_rows<kFwdThreads>(reinterpret_cast<bf16*>(smem + L.tz * s), ldi,
+                           p.z_prev + (size_t)c0 * K * Fin, rows, Fin);
+  };
+  for (int s = 0; s < stages; ++s) {
+    load(blockIdx.x + s * gridDim.x, s);
+    cp_commit();
+  }
+  // bf16(W) into shared memory while the first tiles fly
+  if (wsmem) {
+    for (int i = tid; i < Fin * Fout; i += kFwdThreads) {
+      const int r = i / Fout;
+      wsm[(size_t)r * ldo + i - r * Fout] = __float2bfloat16_rn(p.w[i]);
     }
-    __syncthreads();
+  }
 
-    // z' = bf16(h @ bf16(W) + b): a warp owns 16 output channels
-    for (int ni = warp; ni < nni; ni += kWarps) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+  // Lane l's share of the column sums, one value per 8-column tile t of
+  // its warp: after col_reduce4 it holds sum z' (bit 4 of l clear) or sum
+  // z'^2 (set) of column 8 t + lcol + bit 3 of l over this warp's rows,
+  // added tile after tile in the walk's order.
+  float sacc[kMaxNt];
 #pragma unroll
-      for (int m = 0; m < 8; ++m) wmma::fill_fragment(acc[m], 0.0f);
-      for (int kk = 0; kk < nkk; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, wb + (size_t)kk * 16 * Fout + ni * 16,
-                               Fout);
+  for (int t = 0; t < kMaxNt; ++t) sacc[t] = 0.0f;
+
+  int it = 0;
+  T3D_CLK_START
+  for (int T = blockIdx.x; T < ntiles; T += gridDim.x, ++it) {
+    const int s = it % stages;
+    const int c0 = T * ct, nval = min(ct, p.ncent - c0), rows = nval * K;
+    const bf16* zt = reinterpret_cast<const bf16*>(smem + L.tz * s);
+    // One group a tile is committed; all but the later tiles' have landed.
+    if (stages == 1) cp_wait<0>();
+    else if (stages == 2) cp_wait<1>();
+    else cp_wait<2>();
+    __syncthreads();
+    T3D_CLK(0)
+
+    // --- z' = bf16(relu(bf16(z a + c)) @ bf16(W) + b) -------------------
+    if (wm * 16 < rows) {
+      const bf16* arow = zt + (size_t)(wm * 16 + (lane & 15)) * ldi +
+                         (lane >> 4) * 8;
+      const int r0 = wm * 16 + lrow;
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          if (m < nmi) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-                fa;
-            wmma::load_matrix_sync(fa, h + m * 16 * ldh + kk * 16, ldh);
-            wmma::mma_sync(acc[m], fa, fb, acc[m]);
+      for (int ch = 0; ch < kMaxNt / kChunk; ++ch) {
+        const int t0 = ch * kChunk;
+        if (t0 < ntn) {
+          float acc[kChunk][4];
+#pragma unroll
+          for (int t = 0; t < kChunk; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+          for (int kk = 0; kk < nkk; ++kk) {
+            uint32_t a[4];
+            ldsm4(a, arow + kk * 16);
+            const int k0 = kk * 16 + lcol;
+            const float2 alo = lds2(pa + k0), ahi = lds2(pa + k0 + 8);
+            const float2 clo = lds2(pc + k0), chi = lds2(pc + k0 + 8);
+            a[0] = bn_relu_pack(unpack2(a[0]), alo, clo);
+            a[1] = bn_relu_pack(unpack2(a[1]), alo, clo);
+            a[2] = bn_relu_pack(unpack2(a[2]), ahi, chi);
+            a[3] = bn_relu_pack(unpack2(a[3]), ahi, chi);
+#pragma unroll
+            for (int t = 0; t < kChunk; t += 2) {
+              const int tt = t0 + t;
+              if (tt < ntn) {
+                const bool two = tt + 1 < ntn;
+                uint32_t b[4];
+                if (wsmem) {
+                  // matrices: (k 0-7, tile tt), (k 8-15, tt), and the
+                  // same of tile tt + 1 (tt again at the last odd tile)
+                  const int mt = tt + ((lane >> 4) & (two ? 1 : 0));
+                  ldsm4t(b, wsm + (size_t)(kk * 16 + (lane & 7) +
+                                           ((lane >> 3) & 1) * 8) * ldo +
+                                nbase + mt * 8);
+                } else {
+                  const bf16* w0 =
+                      p.wt + (size_t)(nbase + tt * 8 + lrow) * Fin + k0;
+                  b[0] = ldg32(w0);
+                  b[1] = ldg32(w0 + 8);
+                  if (two) {
+                    b[2] = ldg32(w0 + (size_t)8 * Fin);
+                    b[3] = ldg32(w0 + (size_t)8 * Fin + 8);
+                  }
+                }
+                mma16816(acc[t], a, b[0], b[1]);
+                if (two) mma16816(acc[t + 1], a, b[2], b[3]);
+              }
+            }
+          }
+          // Epilogue in registers: bias and bf16 rounding, z' into the
+          // staging tile, the column sums (and K7's extrema) of the
+          // warp's 16 rows by shuffles.
+#pragma unroll
+          for (int t = 0; t < kChunk; ++t) {
+            if (t0 + t < ntn) {
+              const int col = nbase + (t0 + t) * 8 + lcol;
+              const float2 bv = lds2(pb + col);
+              const uint32_t plo = pack2(__fadd_rn(acc[t][0], bv.x),
+                                         __fadd_rn(acc[t][1], bv.y));
+              const uint32_t phi = pack2(__fadd_rn(acc[t][2], bv.x),
+                                         __fadd_rn(acc[t][3], bv.y));
+              *reinterpret_cast<uint32_t*>(outs + r0 * ldo + col) = plo;
+              *reinterpret_cast<uint32_t*>(outs + (r0 + 8) * ldo + col) = phi;
+              const float2 lo = unpack2(plo), hi = unpack2(phi);
+              const float v[4] = {
+                  __fadd_rn(lo.x, hi.x), __fadd_rn(lo.y, hi.y),
+                  __fadd_rn(__fmul_rn(lo.x, lo.x), __fmul_rn(hi.x, hi.x)),
+                  __fadd_rn(__fmul_rn(lo.y, lo.y), __fmul_rn(hi.y, hi.y))};
+              sacc[t0 + t] = __fadd_rn(sacc[t0 + t], t3d::col_reduce4(v));
+              if (kLast) {
+                // the min as the max of the negated values: exact
+                const float e[4] = {fmaxf(lo.x, hi.x), fmaxf(lo.y, hi.y),
+                                    -fminf(lo.x, hi.x), -fminf(lo.y, hi.y)};
+                const float m = t3d::col_reduce4<true>(e);
+                if (!(lane & 4))
+                  ext[(((lane >> 4) & 1) * kFwdWm + wm) * Fout + col +
+                      ((lane >> 3) & 1)] = m;
+              }
+            }
           }
         }
       }
-      float* pw = patch + warp * 256;
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        if (m < nmi) {
-          wmma::store_matrix_sync(pw, acc[m], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int i = lane; i < 256; i += 32) {
-            const int r = i >> 4, ch = ni * 16 + (i & 15);
-            zn[(m * 16 + r) * ldz + ch] =
-                __float2bfloat16_rn(__fadd_rn(pw[i], bias[ch]));
-          }
-          __syncwarp();
-        }
-      }
     }
-    __syncthreads();
+    __syncthreads();  // the stage is read, z' and the extrema are complete
+    T3D_CLK(1)
 
-    // write z', and its sums (and extrema) in a fixed order
-    float mx = -INFINITY, mn = INFINITY;
-    if (o.active) {
-      bf16* zo = z_next + (size_t)c * K * Fout + o.f;
-      for (int k = o.rg; k < K; k += o.nrg) {
-        const bf16 zb = zn[k * ldz + o.f];
-        zo[(size_t)k * Fout] = zb;
-        const float z = tof(zb);
-        s = __fadd_rn(s, z);
-        q = __fadd_rn(q, __fmul_rn(z, z));
-        mx = fmaxf(mx, z);
-        mn = fminf(mn, z);
+    // --- the tile of T + stages * grid flies from here; z' leaves as
+    // 16-byte stores; K7's extrema of each centroid from its row blocks -
+    load(T + stages * gridDim.x, s);
+    cp_commit();
+    {
+      const int cpr = Fout >> 3, total = rows * cpr;
+      bf16* out = p.z_next + (size_t)c0 * K * Fout;
+      int r = tid / cpr, g = tid - r * cpr;
+      const int dr = kFwdThreads / cpr, dg = kFwdThreads - dr * cpr;
+      for (int i = tid; i < total; i += kFwdThreads) {
+        *reinterpret_cast<uint4*>(out + (size_t)i * 8) =
+            *reinterpret_cast<const uint4*>(outs + (size_t)r * ldo + g * 8);
+        r += dr;
+        g += dg;
+        if (g >= cpr) {
+          g -= cpr;
+          ++r;
+        }
       }
     }
     if (kLast) {
-      mx = t3d::reduce_rg<t3d::kMax>(mx, o, Fout, red);
-      mn = t3d::reduce_rg<t3d::kMin>(mn, o, Fout, red);
-      if (tid < Fout) {
-        zmax[(size_t)c * Fout + tid] = mx;
-        zmin[(size_t)c * Fout + tid] = mn;
+      const int bpc = K / 16;  // row blocks a centroid
+      for (int i = tid; i < nval * Fout; i += kFwdThreads) {
+        const int ci = i / Fout, col = i - ci * Fout;
+        float mx = -INFINITY, nmn = -INFINITY;
+        for (int w = ci * bpc; w < (ci + 1) * bpc; ++w) {
+          mx = fmaxf(mx, ext[w * Fout + col]);
+          nmn = fmaxf(nmn, ext[(kFwdWm + w) * Fout + col]);
+        }
+        p.zmax[(size_t)(c0 + ci) * Fout + col] = mx;
+        p.zmin[(size_t)(c0 + ci) * Fout + col] = -nmn;
       }
     }
-    __syncthreads();  // h and zn are rewritten by the next centroid
+    T3D_CLK(2)
   }
-  s = t3d::reduce_rg<t3d::kSum>(s, o, Fout, red);
-  q = t3d::reduce_rg<t3d::kSum>(q, o, Fout, red);
-  if (tid < Fout) {
-    float* p = partials + (size_t)blockIdx.x * 2 * Fout;
-    p[tid] = s;
-    p[Fout + tid] = q;
+  cp_wait<0>();
+  __syncthreads();
+
+  // --- this block's partial sums: the warps' shares in row-block order --
+  float* slot = reinterpret_cast<float*>(outs);  // [2][kFwdWm][Fout]
+  if (!(lane & 4)) {
+#pragma unroll
+    for (int t = 0; t < kMaxNt; ++t)
+      if (t < ntn)
+        slot[(((lane >> 4) & 1) * kFwdWm + wm) * Fout + nbase + t * 8 + lcol +
+             ((lane >> 3) & 1)] = sacc[t];
+  }
+  __syncthreads();
+  if (tid < 2 * Fout) {
+    const int stat = tid / Fout, col = tid - stat * Fout;
+    const float* at = slot + stat * kFwdWm * Fout + col;
+    float sum = at[0];
+    for (int w = 1; w < kFwdWm; ++w) sum = __fadd_rn(sum, at[w * Fout]);
+    p.partials[(size_t)blockIdx.x * 2 * Fout + tid] = sum;
   }
 }
 
@@ -235,30 +447,62 @@ extern "C" int t3d_sa_extract(const float* cent, const float* xyz,
   return (int)t3d::reduce_partials(partials, sums, grid, 2 * f, st);
 }
 
-// z_next [C, K, F_out] bf16 from z_prev [C, K, F_in]; wb is bf16(W)
-// [F_in, F_out] row-major; partials f32 [grid, 2, F_out] scratch; sums f32
-// [2, F_out]; zmax, zmin f32 [C, F_out] when `last`.
+#ifdef T3D_KERNEL_CLOCKS
+// Copies K6/K7's phase clocks to `out` (8 values) and sets them to zero.
+extern "C" int t3d_sa_fwd_clocks(unsigned long long* out) {
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, t3d_fwd_clk, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(t3d_fwd_clk, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
+
+// z_next [C, K, F_out] bf16 from z_prev [C, K, F_in] (16-byte aligned);
+// w is W [F_in, F_out] f32 row-major when `wsmem` (the kernel rounds it
+// into shared memory), else bf16(W)^T [F_out, F_in]; partials f32 [grid,
+// 2, F_out] scratch; sums f32 [2, F_out];
+// zmax, zmin f32 [C, F_out] when `last`. `ct` centroids a tile, `stages`
+// ring stages and `wsmem` are the launcher's plan (`sa_fwd_plan`).
 extern "C" int t3d_sa_fwd_step(const void* z_prev, const float* pack,
-                               const void* wb, const float* bias,
+                               const void* w, const float* bias,
                                void* z_next, float* partials, float* sums,
                                float* zmax, float* zmin, int ncent, int k,
-                               int fin, int fout, int last, int grid,
+                               int fin, int fout, int last, int ct,
+                               int stages, int wsmem, int grid,
                                void* stream) {
   if (ncent < 1 || grid < 1 || bad_tile(k, fin) || bad_tile(k, fout) ||
       (last && (!zmax || !zmin)))
     return (int)cudaErrorInvalidValue;
+  if (ct < 1 || ct * k > t3d::kMaxK || stages < 1 || stages > kFwdMaxStages)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_layout(k, fin, fout, ct, stages, wsmem, last).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = fwd_smem_bytes(k, fin, fout);
   auto kern = last ? sa_fwd_step_kernel<true> : sa_fwd_step_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(z_prev), pack, static_cast<const bf16*>(wb),
-      bias, static_cast<bf16*>(z_next), partials, zmax, zmin, ncent, k, fin,
-      fout);
+  FwdArgs a;
+  a.z_prev = static_cast<const bf16*>(z_prev);
+  a.pack = pack;
+  a.w = wsmem ? static_cast<const float*>(w) : nullptr;
+  a.wt = wsmem ? nullptr : static_cast<const bf16*>(w);
+  a.bias = bias;
+  a.z_next = static_cast<bf16*>(z_next);
+  a.partials = partials;
+  a.zmax = zmax;
+  a.zmin = zmin;
+  a.ncent = ncent;
+  a.K = k;
+  a.Fin = fin;
+  a.Fout = fout;
+  a.ct = ct;
+  a.stages = stages;
+  a.wsmem = wsmem;
+  kern<<<grid, kFwdThreads, smem, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)t3d::reduce_partials(partials, sums, grid, 2 * fout, st);

@@ -11,11 +11,13 @@ so the grouping gathers layer-1 preactivations `pf` and a per-centroid
 correction `qc`. `GroupedPointMLP` then takes the fused branch
 (ops/fused_sa: on the card one CUDA kernel per SA scale in inference, K2,
 and the multi-pass kernels K5-K9 in training) when its dtype is bfloat16
-and `T3D_FUSED_SA` is "1" (the default), read at call time; otherwise the
-unfused branch: `grouped_payload` (kernels K3/K4 for bf16 on the card),
-then BN, ReLU and Dense per layer and the max over K (pointnet2.py:146-162;
-the JAX package additionally requires a TPU for the fused branch, the
-port's runs on any device). Both branches hold the same parameters and
+and `T3D_FUSED_SA` is "1" (the default), read at call time, unless the
+scale needs the training kernels and its shapes are not theirs
+(`fused_sa.fused_route`: K or a width not a multiple of 16, K > 128, a
+width > 256); otherwise the unfused branch: `grouped_payload` (kernels
+K3/K4 for bf16 on the card), then BN, ReLU and Dense per layer and the
+max over K (pointnet2.py:146-162; the JAX package additionally requires
+a TPU for the fused branch, the port's runs on any device). Both branches hold the same parameters and
 buffers and update the BN running statistics alike.
 Parameter names match the flax tree (`dense_i`, `bn_i`, `mlp`, `mlp_i`).
 """
@@ -74,7 +76,12 @@ class GroupedPointMLP(nn.Module):
         qc = dense0(cent_pad) - dense0(torch.zeros_like(cent_pad))
         if (self.dtype == torch.bfloat16
                 and os.environ.get("T3D_FUSED_SA", "1") == "1"):
-            return self._fused(new_xyz, xyz, pf, qc, bn_momentum)
+            passes = self.training or (torch.is_grad_enabled() and (
+                pf.requires_grad or qc.requires_grad
+                or any(p.requires_grad for p in self.parameters())))
+            if fused_sa.fused_route(self.nsample, self.features, passes):
+                return self._fused(new_xyz, xyz, pf, qc, bn_momentum)
+            fused_sa.note_reroute(self.nsample, self.features)
         grouped_pf, _ = grouped_payload(new_xyz, xyz, pf, self.radius,
                                         self.nsample)  # [B, S, K, F1]
         x = grouped_pf - qc[:, :, None, :]

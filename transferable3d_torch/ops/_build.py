@@ -9,15 +9,16 @@ library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. With `T3D_KERNEL_CLOCKS=1` in the environment
-`sa_train_bwd.cu` is compiled with its phase clocks, as a library of its
-own name. Nothing here runs at import time: the CPU tests import every
+K2, K6/K7 and K8/K9 are compiled with their phase clocks, as a library of
+its own name. Nothing here runs at import time: the CPU tests import every
 module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
 synchronise, and returns `cudaGetLastError()`; `check()` raises on a
 nonzero code. Launch counts live in `LAUNCHES`, one plain integer per
 kernel, incremented by the wrappers right after a launch and nowhere
-else.
+else; beside them `fused_sa_rerouted` counts the set-abstraction scales
+that `fused_sa.fused_route` sent from the fused branch to the unfused one.
 """
 
 from __future__ import annotations
@@ -37,13 +38,15 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
-# Set to "1" before the first build of a process, this compiles K8/K9
-# with their phase clocks (scripts/torch_time_sa_bwd.py --phases).
+# Set to "1" before the first build of a process, this compiles K2, K6/K7
+# and K8/K9 with their phase clocks (scripts/torch_time_sa_fwd.py and
+# scripts/torch_time_sa_bwd.py, --phases).
 CLOCKS_ENV = "T3D_KERNEL_CLOCKS"
 
 LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
             "sa_extract": 0, "sa_fwd_step": 0, "sa_fwd_last": 0,
-            "sa_bwd_step": 0, "sa_bwd_step0": 0, "fetch_select": 0}
+            "sa_bwd_step": 0, "sa_bwd_step0": 0, "fetch_select": 0,
+            "fused_sa_rerouted": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +60,10 @@ _SIGNATURES = {
     # int array), r2, stream
     "t3d_sa_infer": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
                      _P],
+    # cent, xyz, pf, qc, W_d, packs, biases (host pointer arrays), pooled,
+    # B, S, N, K, depth, the kernel's and the chain's widths (host int
+    # arrays), grid, r2, stream
+    "t3d_sa_infer_mma": [_P] * 8 + [_I] * 5 + [_P, _P, _I, _F, _P],
     # cent, xyz, payload, out, count, B, S, N, K, C, r2, stream
     "t3d_extract_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # cent, xyz, dg, f32 workspace, dpay, B, S, N, K, C, r2, stream
@@ -65,10 +72,10 @@ _SIGNATURES = {
     # stream
     "t3d_sa_extract": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                        _I, _P],
-    # z_prev, pack, bf16 W, bias, z_next, partials, sums, zmax, zmin,
-    # centroids, K, F_in, F_out, last, grid, stream
-    "t3d_sa_fwd_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _P],
+    # z_prev, pack, f32 W (or bf16 W^T), bias, z_next, partials, sums, zmax,
+    # zmin, centroids, K, F_in, F_out, last, centroids per tile, stages,
+    # W in shared memory, grid, stream
+    "t3d_sa_fwd_step": [_P] * 9 + [_I] * 9 + [_P],
     # z_j, z_j1, dy_j1, pooled, dpooled, pack_j, pack_j1, bf16 W, cent,
     # xyz, qc, dy_j, partials, sums, scatter workspace, per-centroid
     # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, centroids per
@@ -99,7 +106,7 @@ def _nvcc() -> str:
 
 def _flags():
     if os.environ.get(CLOCKS_ENV) == "1":
-        return NVCC_FLAGS + ["-DT3D_BWD_CLOCKS"]
+        return NVCC_FLAGS + ["-DT3D_KERNEL_CLOCKS"]
     return NVCC_FLAGS
 
 

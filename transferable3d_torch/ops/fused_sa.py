@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -49,11 +50,15 @@ from transferable3d_torch.ops.grouping import (direct_sqdist, flat_row_gather,
                                                radius_sq, scatter_rows,
                                                select_slots)
 
-# csrc/sa_infer.cu: threads per block, max chain depth, and the shared
-# memory one block may use on an H100 (227 KB).
+# csrc/sa_infer.cu: threads per block of the f32 kernel, max chain depth,
+# and the shared memory one block may use on an H100 (227 KB); the
+# tensor-core kernel's warps a block, member slots a warp and widest inner
+# layer.
 _THREADS = 256
 _MAX_DEPTH = 6
 _SMEM_LIMIT = 232448
+_INF_WARPS, _INF_RING, _INF_MAX_INNER = 16, 64, 128
+_PAD = 8  # bf16 elements of padding per shared-memory tile row
 
 
 def _make_pack(gamma, beta, mu, var, eps, mdy=None, mdyx=None):
@@ -102,11 +107,64 @@ def _flat_params(packs, ws, bs) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
-def sa_infer_smem_bytes(nsample: int, dims: Sequence[int]) -> int:
-    """Dynamic shared memory of one K2 block (mirrors sa_infer.cu)."""
+class InferPlan(NamedTuple):
+    """How K2 runs one chain: on the tensor cores (`mma`, widths padded to
+    multiples of 16 in `dims`) or on the general f32 kernel (`dims` as
+    given), and the block's dynamic shared memory in bytes."""
+    mma: bool
+    dims: Tuple[int, ...]
+    smem: int
+
+
+def _ceil16(f: int) -> int:
+    return -(-f // 16) * 16
+
+
+def sa_infer_layout_bytes(dims: Sequence[int]) -> Tuple[int, int, int]:
+    """Shared memory of one block of K2's tensor-core kernel (mirrors
+    sa_infer.cu): (bf16(W_d) as [F_d][F_d+1 + 8] rows back to back, every
+    layer's a | c | b in f32, and the total with each warp's ring of
+    members and the running max and min of the last layer's z)."""
+    wbytes = sum(dims[d] * (dims[d + 1] + _PAD) * 2
+                 for d in range(len(dims) - 1))
+    pbytes = 3 * sum(dims) * 4
+    return (wbytes, pbytes,
+            wbytes + pbytes + _INF_WARPS * (_INF_RING + 2 * dims[-1]) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def sa_infer_plan(nsample: int, dims: Tuple[int, ...]) -> InferPlan:
+    """The tensor-core kernel wherever its inner layers (all but the
+    last), padded to multiples of 16, are at most 128 wide and the weights
+    fit in shared memory; the general f32 kernel otherwise."""
+    padded = tuple(_ceil16(f) for f in dims)
+    if max(padded[:-1]) <= _INF_MAX_INNER:
+        smem = sa_infer_layout_bytes(padded)[2]
+        if smem <= _SMEM_LIMIT:
+            return InferPlan(True, padded, smem)
     head = (nsample + 3 * (_THREADS // 32)) * 4
     head = (head + 15) // 16 * 16
-    return head + 2 * nsample * max(dims) * 2
+    return InferPlan(False, tuple(dims), head + 2 * nsample * max(dims) * 2)
+
+
+def sa_infer_smem_bytes(nsample: int, dims: Sequence[int]) -> int:
+    """Dynamic shared memory of one K2 block under `sa_infer_plan`."""
+    return sa_infer_plan(nsample, tuple(dims)).smem
+
+
+def _pad_to(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """t with zeros appended to its last len(sizes) dims up to `sizes`."""
+    pad = []
+    for dim, size in zip(reversed(range(t.dim())), reversed(sizes)):
+        pad += [0, size - t.shape[dim]]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
+def _pad_dense(dims, ws, bs):
+    """The Dense layers of a chain at widths `dims`: zero rows and columns
+    of every W, zero biases."""
+    return ([_pad_to(w, dims[d], dims[d + 1]) for d, w in enumerate(ws)],
+            [_pad_to(b, dims[d + 1]) for d, b in enumerate(bs)])
 
 
 def sa_infer_cuda(cent, xyz, pf, qc, radius: float, nsample: int,
@@ -147,22 +205,45 @@ def sa_infer_cuda(cent, xyz, pf, qc, radius: float, nsample: int,
     if min(b, s, n, nsample) < 1 or b > 65535:
         raise ValueError(f"sa_infer_cuda: unsupported B={b} S={s} N={n} "
                          f"K={nsample}")
-    smem = sa_infer_smem_bytes(nsample, dims)
-    if smem > _SMEM_LIMIT:
+    plan = sa_infer_plan(nsample, tuple(dims))
+    if plan.smem > _SMEM_LIMIT:
         raise ValueError(f"sa_infer_cuda: K={nsample} x F={max(dims)} needs "
-                         f"{smem} B of shared memory (> {_SMEM_LIMIT})")
+                         f"{plan.smem} B of shared memory (> {_SMEM_LIMIT})")
     lib = _build.library()
-    params = _flat_params(packs, ws, bs)
-    pooled = torch.empty(b, s, dims[-1], dtype=torch.bfloat16, device=dev)
-    dims_c = (ctypes.c_int * depth)(*dims)
+    kd = plan.dims
+    pooled = torch.empty(b, s, kd[-1], dtype=torch.bfloat16, device=dev)
+    dims_c = (ctypes.c_int * depth)(*kd)
     with torch.cuda.device(dev):
-        code = lib.t3d_sa_infer(
-            cent.data_ptr(), xyz.data_ptr(), pf.data_ptr(), qc.data_ptr(),
-            params.data_ptr(), pooled.data_ptr(), b, s, n, nsample, depth,
-            ctypes.addressof(dims_c), radius_sq(radius),
-            _build.stream_ptr(dev))
-    _build.check(code, "t3d_sa_infer")
+        if plan.mma:
+            # the rows are read 4 bytes at a time: a view at an odd offset
+            # is copied to storage of its own
+            pf_k, qc_k = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (_pad_to(pf, kd[0]), _pad_to(qc, kd[0])))
+            # host arrays of the chain's device pointers, alive until the
+            # launch has read them
+            w_c, p_c, b_c = ((ctypes.c_void_p * len(ts))(
+                *(t.data_ptr() for t in ts)) for ts in (ws, packs, bs))
+            real_c = (ctypes.c_int * depth)(*dims)
+            grid = _grid(dev, -(-b * s // _INF_WARPS), 1)
+            code = lib.t3d_sa_infer_mma(
+                cent.data_ptr(), xyz.data_ptr(), pf_k.data_ptr(),
+                qc_k.data_ptr(), ctypes.addressof(w_c), ctypes.addressof(p_c),
+                ctypes.addressof(b_c), pooled.data_ptr(), b, s, n, nsample,
+                depth, ctypes.addressof(dims_c), ctypes.addressof(real_c),
+                grid, radius_sq(radius), _build.stream_ptr(dev))
+            what = "t3d_sa_infer_mma"
+        else:
+            params = _flat_params(packs, ws, bs)
+            code = lib.t3d_sa_infer(
+                cent.data_ptr(), xyz.data_ptr(), pf.data_ptr(),
+                qc.data_ptr(), params.data_ptr(), pooled.data_ptr(), b, s,
+                n, nsample, depth, ctypes.addressof(dims_c),
+                radius_sq(radius), _build.stream_ptr(dev))
+            what = "t3d_sa_infer"
+    _build.check(code, what)
     _build.LAUNCHES["sa_infer"] += 1
+    if kd[-1] != dims[-1]:
+        pooled = pooled[..., :dims[-1]].contiguous()
     return pooled
 
 
@@ -322,8 +403,8 @@ def sa_bwd_step0_plain(train: bool, top: bool, z_j, z_j1, dy_src, cent, xyz,
 _TRAIN_MAX_K = 128
 _TRAIN_MAX_F = 256
 _TRAIN_MAX_DW = 32768
-_FWD_THREADS = 256
-_PAD = 8  # bf16 elements of padding per shared-memory tile row
+# K6/K7 (sa_train_fwd.cu): rows of a tile, ring stages, 16-row blocks.
+_FWD_TILE_ROWS, _FWD_MAX_STAGES, _FWD_WM = 128, 3, 8
 # K8/K9 (sa_train_bwd.cu): threads, rows of a tile, ring stages, 16-row
 # blocks.
 _BWD_THREADS, _BWD_TILE_ROWS, _BWD_MAX_STAGES, _BWD_MAX_WM = 512, 128, 3, 8
@@ -354,6 +435,42 @@ def _need_tile(what: str, k: int, *widths: int) -> None:
                              f"up to {_TRAIN_MAX_F}")
 
 
+def fused_route(nsample: int, widths: Sequence[int], passes: bool) -> bool:
+    """The branch of one SA scale, from its shapes alone, before any
+    launch: True for the fused branch, False for the unfused one
+    (`grouped_payload`, K3/K4, which take any K up to 4,096). Without the
+    training passes (eval, no gradient) the fused branch is K2, which
+    takes every chain. With them (`passes`: train mode, or a gradient
+    wanted) it is K5-K9, which take K a multiple of 16 up to 128 and,
+    with every width padded to a multiple of 16 (`_padded_chain` on the
+    card), widths up to 256 and dW_j up to 32,768 entries (what
+    `_need_tile` and the backward's launcher require). The same decision
+    on every device, so the CPU's plain twins follow the card's route."""
+    dims = [_ceil16(f) for f in widths]
+    return not passes or (
+        nsample % 16 == 0 and 16 <= nsample <= _TRAIN_MAX_K
+        and max(dims) <= _TRAIN_MAX_F
+        and all(a * b <= _TRAIN_MAX_DW for a, b in zip(dims, dims[1:])))
+
+
+_REROUTED_SHAPES = set()
+
+
+def note_reroute(nsample: int, widths: Sequence[int]) -> None:
+    """Count a chain that `fused_route` sent to the unfused branch in
+    `_build.LAUNCHES["fused_sa_rerouted"]`, and warn once a shape."""
+    _build.LAUNCHES["fused_sa_rerouted"] += 1
+    key = (nsample, tuple(widths))
+    if key not in _REROUTED_SHAPES:
+        _REROUTED_SHAPES.add(key)
+        warnings.warn(
+            f"fused set abstraction: K={nsample} with widths {list(widths)} "
+            "is not a shape of the training kernels K5-K9 (K a multiple of "
+            "16 up to 128; widths, padded to multiples of 16, up to 256 and "
+            "dW up to 32,768 entries); this scale trains on the unfused "
+            "branch (K3/K4)", stacklevel=3)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -363,12 +480,48 @@ def _grid(dev, ncent: int, per_sm: int) -> int:
     return max(1, min(ncent, _sm_count(dev) * per_sm))
 
 
+class FwdPlan(NamedTuple):
+    """How K6/K7 tile one shape: `ct` whole centroids (ct * K rows) a
+    tile, `stages` ring stages, bf16(W) resident in shared memory or read
+    through L2, and the block's dynamic shared memory in bytes."""
+    ct: int
+    stages: int
+    w_smem: bool
+    smem: int
+
+
+def sa_fwd_layout_bytes(k: int, f_in: int, f_out: int, ct: int,
+                        stages: int, w_smem: bool, last: bool) -> int:
+    """Dynamic shared memory of one K6/K7 block (mirrors `fwd_layout` of
+    sa_train_fwd.cu): `stages` z_prev tiles, bf16(W) if it stays, the z'
+    staging tile, a | c | b, and K7's per-row-block extrema."""
+    rows = ct * k
+    return (stages * rows * (f_in + _PAD) * 2
+            + (f_in * (f_out + _PAD) * 2 if w_smem else 0)
+            + rows * (f_out + _PAD) * 2 + (2 * f_in + f_out) * 4
+            + (2 * _FWD_WM * f_out * 4 if last else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def sa_fwd_plan(k: int, f_in: int, f_out: int, last: bool = True
+                ) -> FwdPlan:
+    """The most centroids a tile can hold (at most 128 rows), and the
+    most ring stages (up to three) that fit with W resident; a shape too
+    wide for one stage with W reads W through L2 instead."""
+    ct = max(1, _FWD_TILE_ROWS // k)
+    for w_smem in (True, False):
+        for stages in range(_FWD_MAX_STAGES, 0, -1):
+            smem = sa_fwd_layout_bytes(k, f_in, f_out, ct, stages, w_smem,
+                                       last)
+            if smem <= _SMEM_LIMIT:
+                return FwdPlan(ct, stages, w_smem, smem)
+    raise ValueError(f"K6/K7: no tile plan fits K={k}, {f_in} -> {f_out}")
+
+
 def sa_fwd_smem_bytes(k: int, f_in: int, f_out: int) -> int:
-    """Dynamic shared memory of one K6/K7 block (mirrors
-    sa_train_fwd.cu): the h and z' tiles, one 16x16 f32 patch per warp,
-    and the reduction scratch."""
-    return (k * (f_in + _PAD) * 2 + k * (f_out + _PAD) * 2
-            + (_FWD_THREADS // 32) * 1024 + _FWD_THREADS * 4)
+    """Dynamic shared memory of one K7 block under `sa_fwd_plan` (K6
+    needs less: no extrema)."""
+    return sa_fwd_plan(k, f_in, f_out, True).smem
 
 
 class BwdPlan(NamedTuple):
@@ -486,11 +639,15 @@ def sa_fwd_step_cuda(z_prev, pack, w, b, last: bool = False):
                       ("w", w, torch.float32, (f_in, f_out)),
                       ("b", b, torch.float32, (f_out,))))
     _need_tile(what, k, f_in, f_out)
-    smem = sa_fwd_smem_bytes(k, f_in, f_out)
-    _need_smem(what, smem)
+    plan = sa_fwd_plan(k, f_in, f_out, last)
+    _need_smem(what, plan.smem)
+    if z_prev.data_ptr() % 16:  # the tiles come in as 16-byte copies
+        z_prev = z_prev.clone()
     lib = _build.library()
-    grid = _grid(dev, bb * s, 2)
-    wb = w.to(_BF)
+    grid = _grid(dev, sa_bwd_tiles(bb * s, plan.ct)[0], 1)
+    # W as it is when it stays in shared memory (the kernel rounds it
+    # there), else bf16(W)^T for the reads through L2
+    wb = w if plan.w_smem else w.t().to(_BF).contiguous()
     z_next = torch.empty(bb, s, k, f_out, dtype=_BF, device=dev)
     part = torch.empty(grid, 2, f_out, dtype=torch.float32, device=dev)
     sums = torch.empty(2, f_out, dtype=torch.float32, device=dev)
@@ -502,7 +659,8 @@ def sa_fwd_step_cuda(z_prev, pack, w, b, last: bool = False):
             z_next.data_ptr(), part.data_ptr(), sums.data_ptr(),
             ext[0].data_ptr() if last else None,
             ext[1].data_ptr() if last else None, bb * s, k, f_in, f_out,
-            int(last), grid, _build.stream_ptr(dev))
+            int(last), plan.ct, plan.stages, int(plan.w_smem), grid,
+            _build.stream_ptr(dev))
     _build.check(code, "t3d_sa_fwd_step")
     _build.LAUNCHES["sa_fwd_last" if last else "sa_fwd_step"] += 1
     if last:
@@ -766,6 +924,30 @@ class _FusedChain(torch.autograd.Function):
                 None, None, None, *dgammas, *dbetas, *dws, *dbs)
 
 
+def _padded_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs, radius,
+                  nsample, eps, train, running, widths):
+    """The chain on the card's training kernels with every width padded
+    to a multiple of 16: zero channels of pf and qc, zero rows and columns
+    of W, zero biases, and gamma = beta = 0 (a running variance of 1) on
+    the new channels, so a = c = 0 and h = 0 there in every layer; no real
+    channel's value or gradient changes. The padding is differentiable
+    (`torch.nn.functional.pad`), so autograd drops its gradients."""
+    dims = [_ceil16(f) for f in widths]
+    run = None
+    if running is not None:
+        run = [(_pad_to(m, f), torch.nn.functional.pad(
+            v, (0, f - v.shape[-1]), value=1.0))
+               for (m, v), f in zip(running, dims)]
+    pooled, means, variances = fused_grouped_chain(
+        new_xyz, xyz, _pad_to(pf, dims[0]), _pad_to(qc, dims[0]),
+        [_pad_to(g, f) for g, f in zip(gammas, dims)],
+        [_pad_to(b, f) for b, f in zip(betas, dims)],
+        *_pad_dense(dims, ws, bs), radius, nsample, eps, train, run)
+    return (pooled[..., :widths[-1]],
+            tuple(m[:f] for m, f in zip(means, widths)),
+            tuple(v[:f] for v, f in zip(variances, widths)))
+
+
 def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
                         radius: float, nsample: int, eps: float,
                         train: bool, running
@@ -781,8 +963,9 @@ def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
     Returns (pooled [B,S,F_last] bf16, means, variances): the batch
     statistics in train mode, for the caller's running averages, else
     the running ones. Train mode, and eval mode when a gradient is
-    wanted, take the multi-pass schedule (K5-K9); eval without a
-    gradient takes K2. The geometry gets a zero gradient.
+    wanted, take the multi-pass schedule (K5-K9; on the card with widths
+    padded to multiples of 16, `_padded_chain`); eval without a gradient
+    takes K2. The geometry gets a zero gradient.
     """
     depth = len(gammas)
     if depth < 2:
@@ -794,6 +977,11 @@ def fused_grouped_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
     pf, qc = pf.contiguous(), qc.contiguous()
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (pf, qc, *gammas, *betas, *ws, *bs))
+    widths = [g.shape[-1] for g in gammas]
+    if (pf.is_cuda and (train or wants_grad)
+            and any(f % 16 for f in widths)):
+        return _padded_chain(new_xyz, xyz, pf, qc, gammas, betas, ws, bs,
+                             radius, nsample, eps, train, running, widths)
     if not train:
         means = tuple(r[0] for r in running)
         variances = tuple(r[1] for r in running)
