@@ -29,7 +29,9 @@ Serving phases, one line each, under torch.no_grad():
      before it: 4 FPS launches (kernel K1) and 8 fused SA launches
      (kernel K2) are required, and their arguments are captured;
   5. each kernel vs its plain PyTorch twin on those arguments: FPS
-     indices identical; K2 >= 99% of pooled values bit-identical, max
+     indices identical (and at 1 to 12,288 points, k of 1, 2 and every
+     point, on random, all-equal and doubled points: `_fps_probes`);
+     K2 >= 99% of pooled values bit-identical, max
      |diff| <= 1% of max |pooled|, >= 10% of pooled nonzero; K2 at the
      same limits on the probes of `INFER_PROBES` (ragged widths, K = 24
      and K = 1, every ball one member, a 512-wide last layer, an inner
@@ -62,7 +64,7 @@ Training phases (T3D_FUSED_SA=0 set for them and restored after):
      within 2% and gradient cosines (whole model, seg net, T-Net, box
      net) at the limits of `BF16_COS`, printed beside two noise
      witnesses (each device against itself on the batch reversed) and
-     three controls, each of which must fail a limit;
+     five controls, which between them must fail every limit;
  11. 30 train steps on the fixed batch: losses finite and the mean of
      the last 5 below the first;
 then times with CUDA events beside the card's name and power limit: the
@@ -80,12 +82,17 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      there at the top and below a stored dy, train and eval, and at their
      smallest tile (K = 16, 16 <- 16); K6 and K7 at the corners of their
      plan (K = 16; 128 rows of 128 -> 128, 128 -> 256 and 256 -> 256);
+     K5 on the probes of `_extract_probes` (eff = 1 and K, N = 1, F0 of
+     16 to 256 and not a multiple of 8, unaligned rows);
      each kernel's sums bit-identical when it runs twice; the grouped MLPs' BN running statistics bit-identical
      after one step from two copies of the model;
  14. phase 10's bf16 check with the fused path on the card (kernels) and
      on the CPU (plain twins), at the limits of `FUSED_COS`, with two
-     witnesses and three controls; and, as a reading, the card's fused
-     step against its unfused one;
+     witnesses and five controls; as a reading, the card's fused step
+     against its unfused one; and at the batch that is trained (B = 128,
+     pinned the same way) the card's fused gradient against its unfused
+     one at the limits of `FULL_BATCH_COS`, beside two witnesses (each
+     path on the batch reversed) and five controls;
  15. 30 fused train steps: losses finite, the mean of the last 5 below
      the first; then the fused step's time and peak memory beside the
      unfused step's from this run, and K5-K9 vs their twins at each of
@@ -135,6 +142,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -382,6 +390,7 @@ def serve(args, dev, card: str):
         print(f"phase 5 fps [{xyz.shape[0]},{xyz.shape[1]}]->{k}: "
               f"indices identical {same}", flush=True)
         _check(same, "FPS kernel indices differ from the plain twin")
+    _fps_probes(dev, args.seed)
     sa_err = 0.0
     for a in calls["sa_infer"]:
         got = fused_sa.sa_infer_cuda(*a)
@@ -493,6 +502,33 @@ def serve(args, dev, card: str):
           f"{B * 1000.0 / step_ms:.1f} frustums/s {card}", flush=True)
 
     return kernels
+
+
+def _fps_probes(dev, seed):
+    """K1 against its plain twin at 1 to 12,288 points (both paths of the
+    kernel and the corners of its plan), k of 1, 2 and every point, on
+    seeded points with repeats, on all-equal points and on every point
+    given twice: indices identical."""
+    from transferable3d_torch.ops import sampling
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for n in (1, 31, 32, 33, 128, 512, 1024, 4096, 12288):
+        xyz = torch.rand(2, n, 3, generator=g, device=dev) * 8 - 4
+        xyz[:, n // 2:n // 2 + 5] = xyz[:, :1]
+        sets = {"random": xyz,
+                "all equal": torch.full((2, n, 3), 1.5, device=dev),
+                "twice": xyz[:, :(n + 1) // 2].repeat(1, 2, 1)[:, :n]
+                .contiguous()}
+        same = {}
+        for k in sorted({1, 2, n}):
+            for name, pts in sets.items():
+                same[f"k={k} {name}"] = torch.equal(
+                    sampling.fps_cuda(pts, k), sampling.fps_plain(pts, k))
+        print(f"phase 5 fps probe n={n}: indices identical "
+              f"{all(same.values())} ({len(same)} cases, plan "
+              f"{tuple(sampling.fps_plan(n))})", flush=True)
+        _check(all(same.values()), f"FPS kernel indices differ from the "
+               f"plain twin at n={n}: {[k for k, v in same.items() if not v]}")
 
 
 # K2's probes (phase 5): (name, B, N, S, radius, K, widths). Ragged
@@ -615,10 +651,11 @@ class SmallStep:
 
     def __init__(self, cfg, initial, batch, lr, bn, seed, dev,
                  name="frustum_pointnets_v2", model_kw=None, step_cfg=None,
-                 adapt=None):
+                 adapt=None, count=CHECK_B):
         """`name`, `model_kw` and `step_cfg` select the model and the
         step (default: v2, IoU metrics on); `adapt(model)`, if given,
-        changes the layers of every model built as `initial` was."""
+        changes the layers of every model built as `initial` was; the
+        step takes the first `count` frustums of `batch`."""
         from transferable3d_torch.models import layers
         from transferable3d_torch.train import train_loop
 
@@ -626,17 +663,17 @@ class SmallStep:
         self.name, self.model_kw = name, model_kw or {}
         self.adapt = adapt
         self.step_cfg = step_cfg or train_loop.StepConfig()
-        small = {k: v[:CHECK_B].copy() for k, v in batch.items()}
+        small = {k: v[:count].copy() for k, v in batch.items()}
         mean = small["points"][..., :3].mean(axis=1)
         small["points"][..., :3] = np.round(
             (small["points"][..., :3] - mean[:, None]) * 256) / 256
         small["center"] = small["center"] - mean
         self.small = small
         self.keep = layers.dropout_keep_mask(
-            (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(seed + 2))
+            (count, N, 128), 0.5, torch.Generator().manual_seed(seed + 2))
         self.other_keep = layers.dropout_keep_mask(
-            (CHECK_B, N, 128), 0.5, torch.Generator().manual_seed(seed + 3))
-        self.perm = np.arange(CHECK_B)[::-1].copy()
+            (count, N, 128), 0.5, torch.Generator().manual_seed(seed + 3))
+        self.perm = np.arange(count)[::-1].copy()
         probe = copy.deepcopy(initial).train()
         with self._keep_mask(self.keep), torch.no_grad():
             logits = probe(torch.as_tensor(small["points"], device=dev),
@@ -699,6 +736,62 @@ class SmallStep:
             mask = mask[torch.from_numpy(np.argsort(order))]
         return (float(met["total_loss"]),
                 {k: g.cpu() for k, g in _grads(m).items()}, mask)
+
+
+def relabelled(one_step, *a, **kw):
+    """`one_step(*a, **kw)` with its labels moved: the seg labels
+    inverted, every box center 10 m off along x and z, and each frustum
+    given its neighbour's heading and size labels. A control that moves
+    the loss and the seg and box nets' gradients, whatever the noise of
+    the unpinned controls."""
+    labels = ("seg", "center", "heading_class", "heading_residual",
+              "size_class", "size_residual")
+    kept = {k: one_step.small[k] for k in labels}
+    one_step.small.update({k: np.roll(v, 1, axis=0) for k, v in kept.items()})
+    one_step.small["seg"] = 1 - kept["seg"]
+    one_step.small["center"] = kept["center"] + np.float32([10.0, 0, 10.0])
+    try:
+        return one_step(*a, **kw)
+    finally:
+        one_step.small.update(kept)
+
+
+def _bn_without_batch_terms(bn, x, momentum=0.9):
+    """`ScheduledBatchNorm.forward` in train mode with the batch mean and
+    variance held as constants in the backward: dx = dy * scale / sigma,
+    without the terms through the statistics."""
+    xf = x.float()
+    with torch.no_grad():
+        axes = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=axes)
+        var = (xf * xf).mean(dim=axes) - mean * mean
+        bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.var.mul_(momentum).add_((1.0 - momentum) * var)
+    inv = torch.reciprocal(torch.sqrt(var + bn.EPSILON)) * bn.scale
+    return ((xf - mean) * inv + bn.bias).to(bn.dtype or x.dtype)
+
+
+def tnet_bn_detached(one_step, *a, **kw):
+    """`one_step(*a, **kw)` with the T-Net's batch norms missing the
+    batch-statistic terms of their backward (a classic fault of a
+    hand-written batch norm): the control of the T-Net's limit. The
+    forward is unchanged."""
+    from transferable3d_torch.models import layers
+
+    adapt = one_step.adapt
+
+    def detached(model):
+        if adapt is not None:
+            adapt(model)
+        for mod in model.tnet.modules():
+            if isinstance(mod, layers.ScheduledBatchNorm):
+                mod.forward = functools.partial(_bn_without_batch_terms, mod)
+
+    one_step.adapt = detached
+    try:
+        return one_step(*a, **kw)
+    finally:
+        one_step.adapt = adapt
 
 
 def compare(a, b):
@@ -920,7 +1013,10 @@ def _train(args, dev, card: str):
     # Controls: faults the limits must reject. The CPU side summing the
     # grouped cotangent in bf16 (what its backward did before it summed
     # in f32); both sides with the mask and the box net's balls left
-    # free to differ; the CPU side with another dropout mask.
+    # free to differ; the CPU side with another dropout mask; the CPU side
+    # with its labels moved (`relabelled`) and with the T-Net's batch
+    # norms missing the batch-statistic terms of their backward
+    # (`tnet_bn_detached`).
     orig_gather = grouping._SlotGather
     grouping._SlotGather = _BF16SumGather
     try:
@@ -932,6 +1028,10 @@ def _train(args, dev, card: str):
         one_step(bf, "cuda"), one_step(bf, "cpu"))
     controls["control: CPU with another dropout mask"] = compare(
         on_card, one_step(bf, "cpu", True, mask_keep=one_step.other_keep))
+    controls["control: CPU with its labels moved"] = compare(
+        on_card, relabelled(one_step, bf, "cpu", True))
+    controls["control: CPU with the T-Net's batch norms detached"] = compare(
+        on_card, tnet_bn_detached(one_step, bf, "cpu", True))
     judge("phase 10", f"bf16 ({CHECK_B} frustums, foreground margin "
           f"{one_step.margin:.4g})", BF16_COS, runs, controls)
 
@@ -989,13 +1089,21 @@ def _train(args, dev, card: str):
             launches[name], err, tot_k, tot_p, bound))
     return kernels, {"cfg": cfg, "batch": batch, "initial": initial,
                      "lr": lr, "bn": bn, "one_step": one_step,
+                     "seed": args.seed,
                      "unfused_ms": step_ms, "unfused_peak": peak}
 
 
 # Phase 14's bf16 limits (fused set abstraction on the card and on the
 # CPU): set from the readings in PERF.md as `BF16_COS` is, each failed by
-# one of the phase's controls.
-FUSED_COS = {"all": 0.92, "seg_net": 0.985, "tnet": 0.3, "box_net": 0.95}
+# one of the phase's controls; the T-Net's above its realistic controls
+# (both sides unpinned: up to 0.42; the T-Net's batch norms detached:
+# 0.18) and below the least sound reading (the CPU against itself, 0.500).
+FUSED_COS = {"all": 0.92, "seg_net": 0.985, "tnet": 0.45, "box_net": 0.95}
+# Phase 14 at B = 128 (the card's fused step against its unfused one):
+# `FUSED_COS`, with the T-Net's limit set from its own readings: the
+# sound runs and the witnesses 0.84-0.90, the T-Net's batch norms
+# detached 0.31 (PERF.md section 7).
+FULL_BATCH_COS = {**FUSED_COS, "tnet": 0.8}
 # The five training kernels: counter, JAX kernel replaced, source file.
 FUSED_KERNELS = (
     ("sa_extract", "transferable3d_tpu/ops/fused_sa.py:196",
@@ -1037,7 +1145,17 @@ class FusedChecks:
     arithmetic in train mode and the others cancel in part; cnt exact; H within one bf16 step of every slot's magnitude plus 1e-5 of
     the magnitudes of dh's product terms (the f32 order where terms
     cancel); Mq within 1e-5 (the atomics' order). Each kernel's sums are
-    bit-identical when it runs twice."""
+    bit-identical when it runs twice.
+
+    The backward's sum dy_j and sum dy_j xhat_j are held to the f64 sums
+    over the kernel's own dy_j (K8's output; for K9, which does not
+    write dy_0, K8's kernel on the same arguments, its one body), and
+    that dy_j to the twin's at the dy limits above. The twin's own sums
+    are over its dy_j, whose bf16 roundings may differ a step where the
+    kernel's do (allowed above): a ball whose K slots repeat one member
+    repeats such a step K times, which alone can move these sums past
+    1e-4 of their terms' magnitudes. Their distance from the twin's sums
+    is printed beside."""
 
     def __init__(self):
         from transferable3d_torch.ops import fused_sa, grouping
@@ -1066,11 +1184,15 @@ class FusedChecks:
         got, ref = (f(cent, xyz, pf, qc, r, k)
                     for f in (fs.sa_extract_cuda, fs.sa_extract_plain))
         again = fs.sa_extract_cuda(cent, xyz, pf, qc, r, k)
-        same = torch.equal(got[0], ref[0])
+        same = (torch.equal(got[0], ref[0])
+                and torch.equal(got[0], again[0]))
         sums = self._check_sums("K5", ("sum", "sumsq"), got[1:], ref[1:],
                                 again[1:])
-        print(f"phase 13{tag} K5 S={cent.shape[1]} K={k} F0={pf.shape[-1]}:"
-              f" z1 identical {same}, {sums}", flush=True)
+        mags = (ref[0].float().abs().sum((0, 1, 2)), ref[2])
+        sums += ", " + self._check_sums("K5", ("sum", "sumsq"), got[1:],
+                                        ref[1:], again[1:], mags)
+        print(f"phase 13{tag} K5 N={xyz.shape[1]} S={cent.shape[1]} K={k} "
+              f"F0={pf.shape[-1]}: z1 identical {same}, {sums}", flush=True)
         _check(same, "K5 disagrees with its plain twin")
         return float((got[0].float() - ref[0].float()).abs().max()), ref
 
@@ -1100,6 +1222,22 @@ class FusedChecks:
 
     _BWD = ("sdy", "sdyx", "dw", "db")
 
+    @staticmethod
+    def _over_own_dy(dy, z_j, pack_j, ref):
+        """The twin's four backward sums `ref` with sum dy_j and sum dy_j
+        xhat_j taken in f64 over `dy`, with xhat_j as the twin forms it."""
+        dyf = dy.double()
+        xhat = ((z_j.float() - pack_j[2]) * pack_j[3]).double()
+        return (dyf.sum((0, 1, 2)).float(),
+                (dyf * xhat).sum((0, 1, 2)).float(), *ref[2:4])
+
+    def _twin_gap(self, own, twin, mags):
+        """The twin's sum dy_j and sum dy_j xhat_j against `own`'s, per
+        the sums of their terms' magnitudes."""
+        return ("; the twin's over its own dy: " + " ".join(
+            f"{n} {float(((a - b).abs() / (m + 1e-30)).max()):.2e}"
+            for n, a, b, m in zip(self._BWD[:2], twin, own, mags)))
+
     def bwd_step(self, tag, train, top, z_j, z_j1, dy_src, pack_j, pack_j1,
                  w_j):
         fs = self.fs
@@ -1107,12 +1245,14 @@ class FusedChecks:
         got, ref = fs.sa_bwd_step_cuda(*a), fs.sa_bwd_step_plain(*a)
         again = fs.sa_bwd_step_cuda(*a)
         eq, err, mx = _bf16_agree(got[0], ref[0])
-        sums = self._check_sums("K8", self._BWD, got[1:], ref[1:], again[1:],
-                                fs.sa_bwd_sum_magnitudes(*a))
+        mags = fs.sa_bwd_sum_magnitudes(*a)
+        own = self._over_own_dy(got[0], z_j, pack_j, ref[1:])
+        sums = self._check_sums("K8", self._BWD, got[1:], own, again[1:],
+                                mags)
         print(f"phase 13{tag} K8 train={train} top={top} K={z_j.shape[2]} "
               f"F={z_j.shape[-1]}<-{z_j1.shape[-1]}: dy bit-identical "
-              f"{eq:.6f} max|diff| {err:.4g} (max {mx:.4g}), {sums}",
-              flush=True)
+              f"{eq:.6f} max|diff| {err:.4g} (max {mx:.4g}), {sums}"
+              + self._twin_gap(own, ref[1:], mags), flush=True)
         _check(eq >= 0.99 and err <= 0.01 * mx,
                "K8 disagrees with its plain twin")
         return err, ref
@@ -1124,14 +1264,20 @@ class FusedChecks:
              w_j, r)
         got, ref = fs.sa_bwd_step0_cuda(*a), fs.sa_bwd_step0_plain(*a)
         again = fs.sa_bwd_step0_cuda(*a)
-        sums = self._check_sums(
-            "K9", self._BWD, got[:4], ref[:4], again[:4],
-            fs.sa_bwd_sum_magnitudes(train, top, z_j, z_j1, dy_src, pack_j,
-                                     pack_j1, w_j))
+        a8 = (train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j)
+        dy0 = fs.sa_bwd_step_plain(*a8)[0]
+        dy_own = fs.sa_bwd_step_cuda(*a8)[0]
+        eq, dy_err, mx = _bf16_agree(dy_own, dy0)
+        _check(eq >= 0.99 and dy_err <= 0.01 * mx,
+               "K9's dy_0 (K8's kernel) disagrees with the plain twin's")
+        mags = fs.sa_bwd_sum_magnitudes(*a8)
+        own = self._over_own_dy(dy_own, z_j, pack_j, ref[:4])
+        sums = self._check_sums("K9", self._BWD, got[:4], own, again[:4],
+                                mags)
+        sums += (f"; dy_0 bit-identical {eq:.6f} max|diff| {dy_err:.4g} "
+                 f"(max {mx:.4g})" + self._twin_gap(own, ref[:4], mags))
         k, n = z_j.shape[2], xyz.shape[1]
         dz = fs._step_dz_plain(train, top, z_j1, dy_src, pack_j1)
-        dy0 = fs.sa_bwd_step_plain(train, top, z_j, z_j1, dy_src, pack_j,
-                                 pack_j1, w_j)[0]
         mag = torch.matmul(dz.float().abs(),
                            w_j.bfloat16().float().abs().t())
         idx, _ = fs._slots(cent, xyz, r, k)
@@ -1151,6 +1297,36 @@ class FusedChecks:
                and rels[2] <= 1e-2 and rels[3] <= 1e-5,
                "K9 disagrees with its plain twin")
         return err, ref
+
+
+def _extract_probes(check, dev, seed):
+    """K5 on seeded points beyond the main path's balls: K = 16 with F0 =
+    16, F0 = 256 at K = 64 and 128, every ball one member (eff = 1) and
+    every ball full (eff = K), N = 1 and N not a multiple of 32, F0 not a
+    multiple of 8 with K = 24, F0 = 48, and pf and qc 2 bytes past a 16-byte
+    boundary (one bf16 an access); every other centroid 100 m away in
+    each (empty balls)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b, n, s, r, k, f0, off in (
+            (4, 256, 64, 0.4, 16, 16, 0), (4, 256, 64, 0.4, 64, 256, 0),
+            (2, 1024, 128, 0.8, 128, 256, 0),
+            (4, 512, 128, 1e-4, 64, 64, 0), (4, 512, 128, 100.0, 128, 128, 0),
+            (4, 1, 8, 0.4, 32, 64, 0), (4, 100, 40, 0.4, 64, 32, 0),
+            (4, 200, 40, 0.5, 24, 20, 0), (4, 256, 64, 0.4, 32, 48, 0),
+            (4, 1024, 128, 0.4, 64, 64, 1)):
+        xyz = torch.randn(b, n, 3, generator=g, device=dev) * 0.5
+        cent = xyz[:, torch.arange(s, device=dev) % n].clone()
+        cent[:, ::2] += 100.0
+
+        def bf16_rows(*shape):
+            t = torch.empty(math.prod(shape) + off, device=dev,
+                            dtype=torch.bfloat16)[off:]
+            t.copy_(torch.randn(math.prod(shape), generator=g, device=dev))
+            return t.view(shape)
+
+        check.extract(f" probe{' (pf, qc unaligned)' if off else ''}",
+                      cent, xyz, bf16_rows(b, n, f0), bf16_rows(b, s, f0),
+                      r, k)
 
 
 def _fwd_edge_probes(check, a6, a7):
@@ -1268,6 +1444,56 @@ def _bwd_smallest_tile_probe(check, dev, seed):
                         p1b, ws[0], r)
 
 
+def _full_batch_gradient(ctx, dev):
+    """Phase 14 at the batch that is trained (B = 128, bench.py's
+    `v2_train`), bf16, pinned as phase 10 pins its 8 frustums: one
+    gradient from the card's fused step (K5-K9) against the card's unfused
+    one (K3/K4) at the limits of `FUSED_COS`, beside two witnesses (each
+    path against itself on the batch reversed) and five controls, which
+    between them must fail every limit: the fused side's backward without
+    the batch-statistic terms (the eval forms of K8 and K9), both sides
+    unpinned, the fused side with another dropout mask, with its labels
+    moved (`relabelled`) and with the T-Net's batch norms detached
+    (`tnet_bn_detached`). The limits are `FULL_BATCH_COS`."""
+    from transferable3d_torch.ops import fused_sa
+
+    bf = torch.bfloat16
+    full = SmallStep(ctx["cfg"], ctx["initial"], ctx["batch"], ctx["lr"],
+                     ctx["bn"], ctx["seed"], dev, count=B)
+
+    def unfused_step(*a, **kw):
+        with fused_sa_env("0"):
+            return full(*a, **kw)
+
+    fused, unfused = full(bf, dev, True), unfused_step(bf, dev, True)
+    _check(torch.equal(fused[2], unfused[2]) and bool(fused[2].all()),
+           "B=128 bf16 masks differ or are not full")
+    runs = {"card fused vs card unfused": compare(fused, unfused),
+            "witness: card fused vs itself on the batch reversed":
+                compare(fused, full(bf, dev, True, full.perm)),
+            "witness: card unfused vs itself on the batch reversed":
+                compare(unfused, unfused_step(bf, dev, True, full.perm))}
+    orig_bwd = fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0
+    fused_sa.sa_bwd_step = lambda train, *a: orig_bwd[0](False, *a)
+    fused_sa.sa_bwd_step0 = lambda train, *a: orig_bwd[1](False, *a)
+    try:
+        controls = {"control: fused backward without the batch-statistic "
+                    "terms": compare(full(bf, dev, True), unfused)}
+    finally:
+        fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0 = orig_bwd
+    controls["control: both sides unpinned"] = compare(
+        full(bf, dev), unfused_step(bf, dev))
+    controls["control: fused with another dropout mask"] = compare(
+        full(bf, dev, True, mask_keep=full.other_keep), unfused)
+    controls["control: fused with its labels moved"] = compare(
+        relabelled(full, bf, dev, True), unfused)
+    controls["control: fused with the T-Net's batch norms detached"] = (
+        compare(tnet_bn_detached(full, bf, dev, True), unfused))
+    judge("phase 14 B=128", f"fused vs unfused on the card, bf16 ({B} "
+          f"frustums, foreground margin {full.margin:.4g})",
+          FULL_BATCH_COS, runs, controls)
+
+
 def train_fused(args, dev, card: str, ctx):
     """Phases 12-15: training with T3D_FUSED_SA unset (the default), the
     fused set-abstraction path through kernels K5-K9. Returns their JSON
@@ -1380,6 +1606,7 @@ def _train_fused(args, dev, card: str, ctx):
         _bwd_edge_probes(check, a8, a9, args.seed + i)
     _bwd_smallest_tile_probe(check, dev, args.seed)
     _fwd_corner_probes(check, dev, args.seed)
+    _extract_probes(check, dev, args.seed)
 
     # The forward of one step twice from the same start: the BN running
     # statistics of every grouped MLP, which hold K5-K7's batch means and
@@ -1415,7 +1642,9 @@ def _train_fused(args, dev, card: str, ctx):
                 compare(on_cpu, one_step(bf, "cpu", True, one_step.perm))}
     # Controls: the CPU side's backward without the batch-statistic terms
     # (the eval forms of K8 and K9); both sides unpinned; the CPU side
-    # with another dropout mask.
+    # with another dropout mask, with its labels moved and with the
+    # T-Net's batch norms missing the batch-statistic terms of their
+    # backward.
     orig_bwd = fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0
     fused_sa.sa_bwd_step = lambda train, *a: orig_bwd[0](False, *a)
     fused_sa.sa_bwd_step0 = lambda train, *a: orig_bwd[1](False, *a)
@@ -1428,12 +1657,17 @@ def _train_fused(args, dev, card: str, ctx):
         one_step(bf, "cuda"), one_step(bf, "cpu"))
     controls["control: CPU with another dropout mask"] = compare(
         on_card, one_step(bf, "cpu", True, mask_keep=one_step.other_keep))
+    controls["control: CPU with its labels moved"] = compare(
+        on_card, relabelled(one_step, bf, "cpu", True))
+    controls["control: CPU with the T-Net's batch norms detached"] = compare(
+        on_card, tnet_bn_detached(one_step, bf, "cpu", True))
     judge("phase 14", f"fused, bf16 ({CHECK_B} frustums)", FUSED_COS, runs,
           controls)
     with fused_sa_env("0"):
         unfused = one_step(bf, "cuda", True)
     show("phase 14 reading: card fused vs card unfused",
          compare(on_card, unfused))
+    _full_batch_gradient(ctx, dev)
 
     # 15. 30 steps on the fixed batch, then times
     losses = []

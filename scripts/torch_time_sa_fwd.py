@@ -1,26 +1,31 @@
-"""Time the forward set-abstraction kernels K2 (inference) and K6/K7 (the
-training forward step) alone on the card, on a step's own tensors.
+"""Time the forward kernels K1 (farthest-point sampling), K2 (inference),
+K5 (the training extraction) and K6/K7 (the training forward step) alone
+on the card, on a step's own tensors.
 
-K2's arguments are captured from one `make_predict_step` call of
+K1's and K2's arguments are captured from one `make_predict_step` call of
 chip_smoke.py's serving configuration (F-PointNet v2 in bf16, B = 128
 frustums of N = 1024 points, seeded weights with perturbed BN statistics,
-half the points masked), so its balls have the step's distribution of
+half the points masked), so K2's balls have the step's distribution of
 members (`eff`): a ball's K slots repeat its members, and the kernel runs
-the chain on the members only. K6's and K7's arguments are captured from
-one fused `make_train_step` call on chip_smoke.py's `v2_train` batch, so
-their rows repeat as a ball's slots do. Each launch is timed with CUDA
-events (`--iters` launches after two warm-up ones) and printed beside its
-bound (the least time the card could take: K2's products over the eff
-rows at 989 TFLOP/s, or K6/K7's bytes at 3.35 TB/s, each input read once
-and each output written once) and the plan the launcher chose; the last
-lines are the sums over one step's eight launches of each kernel.
+the chain on the members only. K5's, K6's and K7's arguments are captured
+from one fused `make_train_step` call on chip_smoke.py's `v2_train`
+batch, so K5 meets the step's balls and K6/K7's rows repeat as a ball's
+slots do. Each launch is timed with CUDA events (`--iters` launches after
+two warm-up ones) and printed beside its bound (the least time the card
+could take: K1's f32 operations, about 10 a point and pick, at 67
+TFLOP/s, with its dependent steps and the time a step beside it; K2's
+products over the eff rows at 989 TFLOP/s; K5's and K6/K7's bytes at
+3.35 TB/s, each input read once and each output written once) and the
+plan the launcher chose; the last lines are the sums over one step's
+launches of each kernel (K1: 4, the others 8).
 
 With `--phases` the kernels are built with their phase clocks
 (`T3D_KERNEL_CLOCKS=1`, a library of its own name) and under each line
 stands where the first warp of block 0 (K2: per centroid: the ball query,
 z1 and h_0, the inner layers, the last layer with the max, the pooled
-row) or thread 0 of block 0 (K6/K7: per tile: the ring's wait, the
-products with their epilogue, the way out) spent its cycles.
+row; K5: per centroid: the ball query, the rows with their sums, and the
+block's sums once) or thread 0 of block 0 (K6/K7: per tile: the ring's
+wait, the products with their epilogue, the way out) spent its cycles.
 
 `--root PATH` imports the port (and chip_smoke.py) from another checkout,
 so that two trees are timed on one card in one call; `--phases` needs a
@@ -42,7 +47,7 @@ from pathlib import Path
 
 import torch
 
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
 def _phase_cycles(lib, fn_name, names, fn) -> str:
@@ -58,6 +63,12 @@ def _phase_cycles(lib, fn_name, names, fn) -> str:
     units = max(1, buf[7])
     return (f"    {units} units, cycles a unit: " + ", ".join(
         f"{name} {buf[i] // units}" for i, name in enumerate(names)))
+
+
+def _plan(mod, name, *a):
+    """The launcher's plan, where the imported tree has one."""
+    fn = getattr(mod, name, None)
+    return fn(*a) if fn else "no plan"
 
 
 def main() -> int:
@@ -79,7 +90,7 @@ def main() -> int:
     import chip_smoke
     from transferable3d_torch.core import bins
     from transferable3d_torch.models import registry
-    from transferable3d_torch.ops import _build, fused_sa
+    from transferable3d_torch.ops import _build, fused_sa, sampling
     from transferable3d_torch.train import schedules, train_loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,19 +117,21 @@ def main() -> int:
         logits = logits.float()
         model.seg_net.seg_out.bias[1] -= (logits[..., 1]
                                           - logits[..., 0]).median()
-    infer_calls, fwd_calls = [], []
-    orig_infer, orig_fwd = fused_sa.sa_infer_cuda, fused_sa.sa_fwd_step_cuda
+    calls = {"fps_cuda": [], "sa_infer_cuda": [], "sa_extract_cuda": [],
+             "sa_fwd_step_cuda": []}
+    mods = {"fps_cuda": sampling, "sa_infer_cuda": fused_sa,
+            "sa_extract_cuda": fused_sa, "sa_fwd_step_cuda": fused_sa}
+    orig = {name: getattr(mods[name], name) for name in calls}
 
-    def rec_infer(*a):
-        infer_calls.append(a)
-        return orig_infer(*a)
+    def recorder(name):
+        def rec(*a):
+            calls[name].append(tuple(x.detach() if torch.is_tensor(x)
+                                     else x for x in a))
+            return orig[name](*a)
+        return rec
 
-    def rec_fwd(*a):
-        fwd_calls.append(tuple(x.detach() if torch.is_tensor(x) else x
-                               for x in a))
-        return orig_fwd(*a)
-
-    fused_sa.sa_infer_cuda, fused_sa.sa_fwd_step_cuda = rec_infer, rec_fwd
+    for name in calls:
+        setattr(mods[name], name, recorder(name))
     try:
         with torch.no_grad():
             train_loop.make_predict_step(model, cfg)(batch)
@@ -133,23 +146,57 @@ def main() -> int:
             train_loop.make_train_step(cfg, lr, bn)(
                 state, chip_smoke.train_batch(cfg))
     finally:
-        fused_sa.sa_infer_cuda, fused_sa.sa_fwd_step_cuda = (orig_infer,
-                                                             orig_fwd)
+        for name in calls:
+            setattr(mods[name], name, orig[name])
     torch.cuda.synchronize()
-    assert len(infer_calls) == 8 and len(fwd_calls) == 16, (
-        len(infer_calls), len(fwd_calls))
+    # the predict step's four FPS calls come first, then the train step's
+    fps_calls = calls["fps_cuda"][:4]
+    infer_calls, fwd_calls = calls["sa_infer_cuda"], calls["sa_fwd_step_cuda"]
+    assert (len(calls["fps_cuda"]) == 8 and len(infer_calls) == 8
+            and len(calls["sa_extract_cuda"]) == 8 and len(fwd_calls) == 16), (
+        {k: len(v) for k, v in calls.items()})
     lib = _build.library()
     totals = {}
 
-    def report(tag, fn, a, by, fl, clocks):
+    def report(tag, fn, a, by, fl, clocks, peak=PEAK_BF16):
         ms = chip_smoke._time_ms(lambda: fn(*a), 2, args.iters)
-        bound = max(by / PEAK_BYTES, fl / PEAK_BF16) * 1e3
-        tot = totals.setdefault(tag, [0.0, 0.0])
-        tot[0] += ms
-        tot[1] += bound
+        bound = max(by / PEAK_BYTES, fl / peak) * 1e3
+        tot = totals.setdefault(tag, [0, 0.0, 0.0])
+        tot[0] += 1
+        tot[1] += ms
+        tot[2] += bound
         return ms, bound, (_phase_cycles(lib, *clocks, lambda: fn(*a))
-                           if args.phases else None)
+                           if args.phases and clocks else None)
 
+    steps = 0
+    for a in fps_calls:
+        xyz, k = a
+        b, n, _ = xyz.shape
+        ms, bound, _ = report("K1", sampling.fps_cuda, a,
+                              xyz.numel() * 4 + b * k * 4, 10.0 * b * n * k,
+                              None, PEAK_F32)
+        steps += k - 1
+        print(f"K1 [{b},{n}]->{k}: {ms:.4f} ms, {k - 1} dependent steps, "
+              f"{ms * 1e6 / (k - 1):.0f} ns a step, bound {bound:.4f} ms; "
+              f"{_plan(sampling, 'fps_plan', n)} ({card})", flush=True)
+    for a in calls["sa_extract_cuda"]:
+        cent, xyz, pf, qc, r, k = a
+        cnt = (fused_sa.direct_sqdist(cent, xyz)
+               <= fused_sa.radius_sq(r)).sum(-1)
+        rows = cent.shape[0] * cent.shape[1] * k
+        by = chip_smoke._nbytes(cent, xyz, pf, qc) + rows * pf.shape[-1] * 2
+        ms, bound, ph = report(
+            "K5", fused_sa.sa_extract_cuda, a, by, 0.0,
+            ("t3d_sa_extract_clocks", ("ball query", "rows and sums",
+                                       "block sums")))
+        print(f"K5 S={cent.shape[1]} N={xyz.shape[1]} K={k} "
+              f"F0={pf.shape[-1]}: {ms:.4f} ms, {by / 1e6:.1f} MB, eff "
+              f"{float(cnt.clamp(1, k).float().mean()):.1f} of {k}, bound "
+              f"{bound:.4f} ms, {by / ms / 1e6:.0f} GB/s, {ms / bound:.2f} x "
+              f"bound; {_plan(fused_sa, 'sa_extract_plan', k, pf.shape[-1])}"
+              f" ({card})", flush=True)
+        if ph:
+            print(ph, flush=True)
     for a in infer_calls:
         cent, xyz, pf, qc, r, k, packs, ws, bs = a
         cnt = (fused_sa.direct_sqdist(cent, xyz)
@@ -159,7 +206,6 @@ def main() -> int:
               + cent.shape[0] * cent.shape[1] * packs[-1].shape[-1] * 2)
         fl = 2.0 * rows * sum(w.numel() for w in ws)
         dims = tuple(p.shape[-1] for p in packs)
-        plan = getattr(fused_sa, "sa_infer_plan", None)
         ms, bound, ph = report(
             "K2", fused_sa.sa_infer_cuda, a, by, fl,
             ("t3d_sa_infer_clocks", ("ball query", "z1 and h_0",
@@ -168,7 +214,7 @@ def main() -> int:
         print(f"K2 S={cent.shape[1]} N={xyz.shape[1]} K={k} F={list(dims)}: "
               f"{ms:.4f} ms, eff rows {rows / cnt.numel():.1f} of {k}, "
               f"bound {bound:.4f} ms, {ms / bound:.1f} x bound; "
-              f"{plan(k, dims) if plan else 'no plan'} ({card})",
+              f"{_plan(fused_sa, 'sa_infer_plan', k, dims)} ({card})",
               flush=True)
         if ph:
             print(ph, flush=True)
@@ -177,23 +223,24 @@ def main() -> int:
         rows = z.numel() // z.shape[-1]
         by = (chip_smoke._nbytes(z, pack, w, b) + rows * w.shape[-1] * 2
               + (2 * z.shape[0] * z.shape[1] * w.shape[-1] * 4 if last else 0))
-        plan = getattr(fused_sa, "sa_fwd_plan", None)
         tag = "K7" if last else "K6"
         ms, bound, ph = report(
             tag, fused_sa.sa_fwd_step_cuda, a, by, 2.0 * rows * w.numel(),
             ("t3d_sa_fwd_clocks", ("wait", "products", "way out")))
         shape = f"S={z.shape[1]} K={z.shape[2]} F={z.shape[-1]}->{w.shape[-1]}"
+        plan = _plan(fused_sa, "sa_fwd_plan", z.shape[2], z.shape[-1],
+                     w.shape[-1], last)
         print(f"{tag} {shape}: {ms:.4f} ms, {by / 1e6:.1f} MB, bound "
               f"{bound:.4f} ms, {by / ms / 1e6:.0f} GB/s, {ms / bound:.2f} x "
-              f"bound; "
-              f"{plan(z.shape[2], z.shape[-1], w.shape[-1], last) if plan else 'no plan'}"
-              f" ({card})", flush=True)
+              f"bound; {plan} ({card})", flush=True)
         if ph:
             print(ph, flush=True)
-    for tag, (ms, bound) in totals.items():
-        print(f"{tag} per step (8 launches, B={nb}): {ms:.4f} ms, bound "
-              f"{bound:.4f} ms, {ms / bound:.2f} x bound ({card})",
-              flush=True)
+    for tag, (count, ms, bound) in totals.items():
+        extra = (f", {steps} dependent steps, {ms * 1e6 / steps:.0f} ns a "
+                 "step" if tag == "K1" else "")
+        print(f"{tag} per step ({count} launches, B={nb}): {ms:.4f} ms, "
+              f"bound {bound:.4f} ms, {ms / bound:.2f} x bound{extra} "
+              f"({card})", flush=True)
     return 0
 
 

@@ -38,6 +38,30 @@ def test_fps_kernel_equals_plain(b, n, k):
     assert torch.equal(got, sampling.fps_plain(xyz, k))
 
 
+# K1 at the sizes of its plan's corners and its register and shared-memory
+# paths (1 to 12,288 points), k of 1, 2 and every point.
+FPS_SIZES = [(n, k) for n in (1, 31, 32, 33, 128, 512, 1024, 4096, 12288)
+             for k in sorted({1, 2, n})]
+
+
+@pytest.mark.parametrize("n,k", FPS_SIZES)
+def test_fps_kernel_indices_at_every_size(n, k):
+    """K1's indices identical to the plain twin's on random points with
+    repeats, on all-equal points (index 0, then the lowest on ties: 0
+    again) and on every point given twice."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(n + k)
+    xyz = (torch.rand(2, n, 3, generator=g) * 8 - 4).cuda()
+    xyz[:, n // 2:n // 2 + 5] = xyz[:, :1]
+    same = torch.full((2, n, 3), 1.5, device="cuda")
+    twice = xyz[:, :(n + 1) // 2].repeat(1, 2, 1)[:, :n].contiguous()
+    for pts in (xyz, same, twice):
+        got = sampling.fps_cuda(pts, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sampling.fps_plain(pts, k)), n
+    assert not bool(sampling.fps_cuda(same, k).any())
+
+
 def _chain(g, dims, dev):
     packs = [fused_sa._make_pack(
         (torch.rand(f, generator=g) + 0.5).to(dev),
@@ -173,6 +197,62 @@ def test_extract_kernels_refuse_bad_inputs():
 
 
 # --- fused SA training, K5-K9 ---------------------------------------------
+# K5 alone (B, N, S, radius, K, F0): the 8 main-path scales; the corners of
+# its plan (K = 16 with F0 = 16, F0 = 256, K = 128 with F0 = 256); every
+# ball one member (eff = 1) and every ball full (eff = K); N = 1 and N not
+# a multiple of 32; F0 not a multiple of 8 and K not one of 16 (one bf16
+# an access); F0 = 48 (6 lanes of 8 a row).
+K5_CASES = ([(4, n, s, r, k, c) for n, s, r, k, c in SLICE_SCALES]
+            + [(4, 256, 64, 0.4, 16, 16), (4, 256, 64, 0.4, 64, 256),
+               (2, 1024, 128, 0.8, 128, 256), (4, 512, 128, 1e-4, 64, 64),
+               (4, 512, 128, 100.0, 128, 128), (4, 1, 8, 0.4, 32, 64),
+               (4, 100, 40, 0.4, 64, 32), (4, 200, 40, 0.5, 24, 20),
+               (4, 256, 64, 0.4, 32, 48)])
+
+
+def _assert_k5(cent, xyz, pf, qc, r, k):
+    """z1 identical to the twin's; the sums within 1e-4 of the sums of
+    their terms' magnitudes (and of the twin's norm); the same bits
+    twice."""
+    fs = fused_sa
+    z1, s1, q1 = fs.sa_extract_cuda(cent, xyz, pf, qc, r, k)
+    ref = fs.sa_extract_plain(cent, xyz, pf, qc, r, k)
+    again = fs.sa_extract_cuda(cent, xyz, pf, qc, r, k)
+    torch.cuda.synchronize()
+    assert torch.equal(z1, ref[0])
+    mag = ref[0].float().abs().sum((0, 1, 2))
+    assert float(((s1 - ref[1]).abs() / (mag + 1e-30)).max()) <= 1e-4
+    assert float(((q1 - ref[2]).abs() / (ref[2] + 1e-30)).max()) <= 1e-4
+    assert _rel(s1, ref[1]) <= 1e-4 and _rel(q1, ref[2]) <= 1e-4
+    assert torch.equal(s1, again[1]) and torch.equal(q1, again[2])
+    assert torch.equal(z1, again[0])
+
+
+@pytest.mark.parametrize("b,n,s,r,k,f0", K5_CASES)
+def test_sa_extract_kernel_equals_plain(b, n, s, r, k, f0):
+    """K5 on seeded points, on the same centroids with every other one
+    moved 100 m away (empty balls), and on pf and qc that start 2 bytes
+    past a 16-byte boundary (one bf16 an access)."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(n + s + k + f0)
+    xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
+    cent = xyz[:, torch.arange(s) % n].contiguous()
+    pf = torch.randn(b, n, f0, generator=g).to(dev).bfloat16()
+    qc = torch.randn(b, s, f0, generator=g).to(dev).bfloat16()
+    before = _build.LAUNCHES["sa_extract"]
+    _assert_k5(cent, xyz, pf, qc, r, k)
+    assert _build.LAUNCHES["sa_extract"] == before + 2
+    far = cent.clone()
+    far[:, ::2] += 100.0
+    _assert_k5(far, xyz, pf, qc, r, k)
+    off_pf = torch.empty(pf.numel() + 1, device=dev, dtype=pf.dtype)[1:]
+    off_qc = torch.empty(qc.numel() + 1, device=dev, dtype=qc.dtype)[1:]
+    off_pf.copy_(pf.reshape(-1))
+    off_qc.copy_(qc.reshape(-1))
+    _assert_k5(cent, xyz, off_pf.view(pf.shape), off_qc.view(qc.shape), r, k)
+
+
 # The 8 grouped SA scales again, with their chains (N, S, radius, K, F0-F1-F2).
 TRAIN_SCALES = [(1024, 128, 0.2, 32, (32, 32, 64)),
                 (1024, 128, 0.4, 64, (64, 64, 128)),

@@ -508,6 +508,37 @@ def test_fwd_plan_of_the_path_shapes(k, f_in, f_out, last, ct, stages,
     assert (plan.ct, plan.stages, plan.w_smem) == (ct, stages, w_smem)
 
 
+@pytest.mark.parametrize("k", range(16, 129, 16))
+def test_extract_plan_fits_every_shape_the_launcher_admits(k):
+    """K5's plan: 16 warps a block (one centroid a warp), 16-byte accesses
+    wherever F0 is a multiple of 8, and two blocks an SM, with each warp's
+    member list (K ints) and its f64 sums (256 pairs of 8 bytes) within
+    the card's 232,448 bytes, for every F0 up to 256 that is a multiple
+    of 16."""
+    for f0 in range(16, 257, 16):
+        plan = tfs.sa_extract_plan(k, f0)
+        assert (plan.warps, plan.vec, plan.per_sm) == (16, 8, 2), f0
+        assert plan.smem == 16 * (4 * k + 2 * 256 * 8), f0
+        assert plan.smem == tfs.sa_extract_layout_bytes(k, f0, 16), f0
+        assert 2 * (plan.smem + 1024) <= 233472 and plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,f0,warps,vec,per_sm", [
+    (24, 20, 16, 1, 2), (1, 3, 16, 1, 2), (784, 256, 16, 8, 2),
+    (785, 256, 16, 8, 1), (2608, 256, 16, 8, 1), (2609, 256, 15, 8, 1),
+    (4096, 256, 11, 8, 1), (4096, 1, 11, 1, 1)])
+def test_extract_plan_beyond_the_training_path(k, f0, warps, vec, per_sm):
+    """K5 also takes what the unfused branch's shapes would give it: K up
+    to 4,096 (fewer warps a block once 16 lists do not fit) and any F0
+    (one bf16 an access where F0 is not a multiple of 8)."""
+    plan = tfs.sa_extract_plan(k, f0)
+    assert (plan.warps, plan.vec, plan.per_sm) == (warps, vec, per_sm)
+    assert plan.smem == tfs.sa_extract_layout_bytes(k, f0, warps)
+    assert plan.smem <= SMEM_LIMIT
+    if warps < 16:
+        assert tfs.sa_extract_layout_bytes(k, f0, warps + 1) > SMEM_LIMIT
+
+
 @pytest.mark.parametrize("f_in,f_out", [(24, 40), (16, 24), (40, 64)])
 def test_fwd_step_padding_changes_no_z(f_in, f_out):
     """The card's padding of a training chain (`_padded_chain`: zero

@@ -55,6 +55,35 @@ def test_fps_all_equal_points_picks_zero():
     np.testing.assert_array_equal(got, np.zeros((2, 5), np.int32))
 
 
+def test_fps_plan_covers_every_size():
+    """K1's plan for 1 <= n <= 12,288: 4 points a thread in registers up
+    to 2,048 points, 8 up to 4,096, then the shared-memory path with
+    1,024 threads; whole warps, as few as hold the points; the points'
+    copy (16 bytes each) within the card's 232,448 bytes of shared
+    memory."""
+    for n in range(1, tsam.FPS_MAX_POINTS + 1):
+        plan = tsam.fps_plan(n)
+        assert plan.per_thread == (4 if n <= 2048 else 8 if n <= 4096
+                                   else 0), n
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024, n
+        if plan.per_thread:
+            assert plan.threads * plan.per_thread >= n, n
+            assert (plan.threads - 32) * plan.per_thread < n or n <= 32, n
+        else:
+            assert plan.threads == 1024, n
+        assert plan.smem == 16 * n <= 232448 - 512, n
+    for n in (0, tsam.FPS_MAX_POINTS + 1):
+        with pytest.raises(ValueError):
+            tsam.fps_plan(n)
+
+
+@pytest.mark.parametrize("n,threads", [(128, 32), (512, 128), (1024, 256)])
+def test_fps_plan_of_the_path_shapes(n, threads):
+    """The main path's FPS calls (object points 512, the seg net's 1,024
+    and both nets' 128 centroids): one warp for 128 points."""
+    assert tsam.fps_plan(n) == (threads, 4, 16 * n)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     xyz = torch.zeros(1, 8, 3)
     with pytest.raises(ValueError):
@@ -184,7 +213,7 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
 
 def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
     """T3D_KERNEL_CLOCKS=1 adds the define that compiles the phase clocks
-    of K2, K6/K7 and K8/K9 in, under another library name; unset, the
+    of K2, K5, K6/K7 and K8/K9 in, under another library name; unset, the
     flags are the plain ones."""
     from transferable3d_torch.ops import _build
 
@@ -196,6 +225,7 @@ def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
     assert _build._sources()[1] != plain
     for name, fn in (("sa_train_bwd.cu", "t3d_sa_bwd_clocks"),
                      ("sa_train_fwd.cu", "t3d_sa_fwd_clocks"),
+                     ("sa_train_fwd.cu", "t3d_sa_extract_clocks"),
                      ("sa_infer.cu", "t3d_sa_infer_clocks")):
         src = (_build.SRC_DIR / name).read_text()
         assert "#ifdef T3D_KERNEL_CLOCKS" in src and fn in src

@@ -1,6 +1,9 @@
 // Ball-query selection shared by kernels K2 (sa_infer.cu), K3 and K4
 // (ball_extract.cu), K5 (sa_train_fwd.cu) and K9 (sa_train_bwd.cu), so
-// that they cannot disagree on a group's members.
+// that they cannot disagree on a group's members: a block's selection
+// (`ball_select`, K3 and K4), the warps of a block sharing one centroid
+// (`ball_count_part` / `ball_place_part`, K9) and one warp a centroid
+// (`ball_warp_step` / `ball_warp_nearest`, K2 and K5).
 //
 // For one centroid c and the N points of its batch row (one block):
 //   d2     = ((0 + dx*dx) + dy*dy) + dz*dz, dx = c - p (direct form, each
@@ -115,6 +118,64 @@ __device__ __forceinline__ float ball_d2(const float* __restrict__ pts, int p,
   float d = __fmul_rn(dx, dx);
   d = __fadd_rn(d, __fmul_rn(dy, dy));
   return __fadd_rn(d, __fmul_rn(dz, dz));
+}
+
+// The selection by one warp, 32 W points a step, for a warp that holds a
+// centroid of its own (K2: W = 1; K5: W = 4). `ball_warp_step` takes
+// points base .. base + 32 W - 1, lane l points base + 32 u + l: their d2
+// (`ball_d2`, the W words' loads in flight together), then word by word a
+// ballot and a popcount give the in-radius ones the ranks count, count +
+// 1, ... in index order, and each rank below K writes its point to
+// list[rank & mask] (a ring where mask + 1 is its power-of-two length,
+// else mask = -1; K2's ring takes 32 new members a step, so W = 1 there);
+// the lane's running nearest point (near_d, near_i) is updated. It returns
+// the new count, at most K, the same in every lane. A caller stops at
+// count == K or after the last point; if count is then 0,
+// `ball_warp_nearest` gives the nearest point of the warp's running ones,
+// the lowest index on ties, in every lane. Every lane of the warp calls
+// both.
+template <int W = 1>
+__device__ __forceinline__ int ball_warp_step(const float* __restrict__ pts,
+                                              int base, int N, float cx,
+                                              float cy, float cz, float r2,
+                                              int K, int count, int* list,
+                                              int mask, float& near_d,
+                                              int& near_i) {
+  const int lane = threadIdx.x & 31;
+  float d[W];
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int p = base + 32 * u + lane;
+    d[u] = p < N ? ball_d2(pts, p, cx, cy, cz) : INFINITY;
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int p = base + 32 * u + lane;
+    if (d[u] < near_d) {  // p rises within a lane: the lowest index stays
+      near_d = d[u];
+      near_i = p;
+    }
+    const bool in = d[u] <= r2;
+    const unsigned m = __ballot_sync(kFullMask, in);
+    if (in) {
+      const int r = count + __popc(m & ((1u << lane) - 1u));
+      if (r < K) list[r & mask] = p;
+    }
+    count = min(count + __popc(m), K);
+  }
+  return count;
+}
+
+__device__ __forceinline__ int ball_warp_nearest(float near_d, int near_i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float od = __shfl_xor_sync(kFullMask, near_d, o);
+    const int oi = __shfl_xor_sync(kFullMask, near_i, o);
+    if (od < near_d || (od == near_d && oi < near_i)) {
+      near_d = od;
+      near_i = oi;
+    }
+  }
+  return near_i;
 }
 
 // Every lane of the warp calls it; lane 0 writes *cnt, *nd and *ni.

@@ -31,9 +31,10 @@
 // shared memory for the block's life, rounded and laid out there by the
 // block itself from the chain's own f32 tensors (the launcher builds
 // nothing). A warp takes whole centroids:
-//   * its ball query runs 32 points a step (ball_select.cuh's `ball_d2`,
-//     a ballot and a popcount give the members their ranks) and stops at
-//     the K-th member; the members wait in a ring of 64 slots;
+//   * its ball query runs 32 points a step (ball_select.cuh's
+//     `ball_warp_step`, which K5 shares: a ballot and a popcount give the
+//     members their ranks) and stops at the K-th member; the members wait
+//     in a ring of 64 slots;
 //   * every 16 members (and the last, fewer, padded by repeating a
 //     member, which cannot change a max) go through the chain as one
 //     16-row tile: z1 and h_0 are formed from the gathered pf rows in the
@@ -434,37 +435,19 @@ sa_infer_mma_kernel(InferArgs p) {
       }
     };
 
-    // Ball query, 32 points a step, until K members.
+    // Ball query, 32 points a step (ball_select.cuh), until K members.
     int count = 0, done = 0, near_i = p.N;
     float near_d = INFINITY;
     for (int base = 0; base < p.N && count < p.K; base += 32) {
-      const int pt = base + lane;
-      const float d = pt < p.N ? t3d::ball_d2(pts, pt, cx, cy, cz) : INFINITY;
-      if (d < near_d) {  // pt rises within a lane: the lowest index stays
-        near_d = d;
-        near_i = pt;
-      }
-      const bool in = d <= p.r2;
-      const unsigned m = __ballot_sync(t3d::kFullMask, in);
-      if (in) {
-        const int r = count + __popc(m & ((1u << lane) - 1u));
-        if (r < p.K) ring[r & (kRing - 1)] = pt;
-      }
-      count = min(count + __popc(m), p.K);
+      count = t3d::ball_warp_step(pts, base, p.N, cx, cy, cz, p.r2, p.K,
+                                  count, ring, kRing - 1, near_d, near_i);
       __syncwarp();
       T3D_CLK(0)
       for (; count - done >= 16; done += 16) chain(done, 16);
     }
     if (count == 0) {  // an empty ball: the nearest point, lowest index
-      for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_xor_sync(t3d::kFullMask, near_d, o);
-        const int oi = __shfl_xor_sync(t3d::kFullMask, near_i, o);
-        if (od < near_d || (od == near_d && oi < near_i)) {
-          near_d = od;
-          near_i = oi;
-        }
-      }
-      if (lane == 0) ring[0] = near_i;
+      const int nearest = t3d::ball_warp_nearest(near_d, near_i);
+      if (lane == 0) ring[0] = nearest;
       __syncwarp();
       count = 1;
     }

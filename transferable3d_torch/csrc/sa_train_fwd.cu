@@ -27,6 +27,29 @@
 // bytes bound them too, provided the product runs on the tensor cores and
 // the elementwise work around it stays a few instructions an element.
 //
+// K5's design: one warp a centroid, so no block barrier a centroid, up to
+// 16 warps a block and two blocks an SM, a persistent grid
+// (`sa_extract_plan` in ops/fused_sa.py, mirrored by `extract_layout`).
+//   * The ball query is ball_select.cuh's warp step, which K2 shares: 128
+//     points a step (their loads in flight together), ranks by ballot and
+//     popcount, a stop at the K-th member, the nearest point by shuffles
+//     for an empty ball.
+//   * A lane takes 8 channels of a row as one 16-byte access (F0 / 8
+//     lanes a row, 256 / F0 rows a warp step; a single bf16 where F0 is
+//     not a multiple of 8), with qc's 8 values in registers; a centroid's
+//     K rows are contiguous, so the stores coalesce. They are marked
+//     evict-first (`st.global.cs`): z1 streams past the L2, which keeps
+//     the rows it gathers from and the points of the query (8-30% less
+//     time a launch on a train step's balls at seg SA1 and box SA1).
+//   * Each distinct member's z1 is computed once and stored to every slot
+//     that takes it; a centroid's sums add mult * z and mult * z^2, mult
+//     its slot count (both exact for K <= 256), in f32 registers.
+//   * Across the walk the sums are f64: each lane adds its centroid's f32
+//     sums into f64 slots of shared memory that it alone owns; the row
+//     groups of a warp, the warps of a block and the blocks are added in
+//     fixed orders in f64, and the result is rounded to f32 once. So the
+//     only f32 roundings are those of one centroid's few terms.
+//
 // K6/K7's design (the tools of sa_train_bwd.cu):
 //   * A tile is `ct` whole centroids, ct * K <= 128 rows (4 centroids at
 //     K = 32, 2 at K = 64); the last tile of a launch may hold fewer. A
@@ -56,8 +79,9 @@
 // ops/fused_sa.py, which plans ct, the stages and W's place).
 //
 // Whole-grid sums (sa_train.cuh): every partial has one owner (a lane's
-// register across the walk, then the row blocks in order, then the blocks
-// in order by a second launch): the same bits run after run for one grid.
+// register or f64 slot across the walk, then the row blocks in order, then
+// the blocks in order by a second launch): the same bits run after run for
+// one grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +95,8 @@
 // with -DT3D_KERNEL_CLOCKS, thread 0 of block 0 adds to t3d_fwd_clk[i] the
 // cycles it spent between mark i - 1 and mark i of every tile of K6/K7 (0:
 // the ring's wait, 1: the products with their epilogue, 2: the way out)
-// and counts its tiles in t3d_fwd_clk[7]. Otherwise the marks are empty.
+// and counts its tiles in t3d_fwd_clk[7]; K5's marks below. Otherwise the
+// marks are empty.
 #ifdef T3D_KERNEL_CLOCKS
 __device__ unsigned long long t3d_fwd_clk[8];
 #define T3D_CLK_START long long clk_prev = clock64();
@@ -82,9 +107,23 @@ __device__ unsigned long long t3d_fwd_clk[8];
     t3d_fwd_clk[7] += (i) == 2;                                 \
     clk_prev = clk_now;                                         \
   }
+// K5's, in t3d_ext_clk by lane 0 of warp 0 of block 0 (0: the ball
+// query, 1: the rows with the centroid's sums added into the f64 slots,
+// per centroid; 2: the block's sums at the end; 7: its centroids).
+__device__ unsigned long long t3d_ext_clk[8];
+#define T3D_XCLK_START long long xclk_prev = clock64();
+#define T3D_XCLK(i)                                               \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                      \
+    const long long clk_now = clock64();                          \
+    t3d_ext_clk[i] += (unsigned long long)(clk_now - xclk_prev);  \
+    t3d_ext_clk[7] += (i) == 1;                                   \
+    xclk_prev = clk_now;                                          \
+  }
 #else
 #define T3D_CLK_START
 #define T3D_CLK(i)
+#define T3D_XCLK_START
+#define T3D_XCLK(i)
 #endif
 
 namespace {
@@ -103,56 +142,210 @@ using t3d::pack2;
 using t3d::tof;
 using t3d::unpack2;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxExtractK = 4096;
-
 // ---------------------------------------------------------------- K5 -----
 
-__global__ void __launch_bounds__(kThreads)
-sa_extract_kernel(const float* __restrict__ cent,
-                  const float* __restrict__ xyz, const bf16* __restrict__ pf,
-                  const bf16* __restrict__ qc, bf16* __restrict__ z1,
-                  float* __restrict__ partials, int ncent, int S, int N,
-                  int K, int F, float r2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int* sel = reinterpret_cast<int*>(smem);             // [K]
-  int* wcnt = sel + K;                                 // [kWarps]
-  float* red_d = reinterpret_cast<float*>(wcnt + kWarps);
-  int* red_i = reinterpret_cast<int*>(red_d + kWarps);
-  float* red = reinterpret_cast<float*>(red_i + kWarps);  // [kThreads]
+constexpr int kMaxExtractK = 4096;
+constexpr int kExtMaxWarps = 16;
+constexpr int kExtMaxCh = 8;  // channels a lane owns (F0 <= 256)
+// f64 sums a warp owns: (row group, channel) pairs, rows a warp step times
+// F0, at most 256 for F0 <= 256, each a sum and a sum of squares.
+constexpr int kExtAccPairs = 256;
 
-  const t3d::Own o = t3d::own(F);
-  float s = 0.0f, q = 0.0f;
-  for (int c = blockIdx.x; c < ncent; c += gridDim.x) {
-    const int b = c / S;
-    const int total = t3d::ball_select<kThreads>(
-        xyz + (size_t)b * N * 3, N, cent[(size_t)c * 3 + 0],
-        cent[(size_t)c * 3 + 1], cent[(size_t)c * 3 + 2], r2, K, sel, wcnt,
-        red_d, red_i);
-    const int eff = total == 0 ? 1 : min(total, K);
-    if (o.active) {
-      const float qv = tof(qc[(size_t)c * F + o.f]);
-      const bf16* src = pf + (size_t)b * N * F + o.f;
-      bf16* dst = z1 + (size_t)c * K * F + o.f;
-      for (int k = o.rg; k < K; k += o.nrg) {
-        const bf16 zb = __float2bfloat16_rn(
-            __fsub_rn(tof(src[(size_t)sel[k % eff] * F]), qv));
-        dst[(size_t)k * F] = zb;
-        const float z = tof(zb);
-        s = __fadd_rn(s, z);
-        q = __fadd_rn(q, __fmul_rn(z, z));
+// Shared memory of a K5 block of `warps` warps (mirrored by
+// `sa_extract_layout_bytes` in ops/fused_sa.py): each warp's f64 sums,
+// [2][kExtAccPairs] doubles, then each warp's member list, K ints rounded
+// up to 4.
+__host__ __device__ inline size_t extract_list_ints(int K) {
+  return (size_t)(K + 3) / 4 * 4;
+}
+
+__host__ __device__ inline size_t extract_layout(int K, int F, int warps) {
+  (void)F;
+  return (size_t)warps * (2 * kExtAccPairs * 8 + extract_list_ints(K) * 4);
+}
+
+struct ExtArgs {
+  const float* cent;  // [C, 3]
+  const float* xyz;   // [B, N, 3]
+  const bf16* pf;     // [B, N, F]
+  const bf16* qc;     // [C, F]
+  bf16* z1;           // [C, K, F]
+  double* partials;   // [grid, 2, F]
+  int ncent, S, N, K, F;
+  float r2;
+};
+
+// z = bf16(pf - qc) of the V channels at src (V = 8: one 16-byte access;
+// V = 1: one bf16), stored to `nslot` slot rows `step` elements apart from
+// dst; with `mult` > 0 adds mult * z and mult * z^2 to the channels' sums
+// s and q (z has 8 significant bits: both products are exact for mult
+// <= 256).
+__device__ __forceinline__ void add_stats(float& s, float& q, float mult,
+                                          float z) {
+  s = __fadd_rn(s, __fmul_rn(mult, z));
+  q = __fadd_rn(q, __fmul_rn(mult, __fmul_rn(z, z)));
+}
+
+template <int V>
+__device__ __forceinline__ void extract_chunk(const bf16* __restrict__ src,
+                                              const float* qv, bf16* dst,
+                                              size_t step, int nslot,
+                                              float mult, float* s,
+                                              float* q) {
+  if constexpr (V == 8) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+    uint32_t zw[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack2(xw[i]);
+      zw[i] = pack2(__fsub_rn(f.x, qv[2 * i]), __fsub_rn(f.y, qv[2 * i + 1]));
+    }
+    const uint4 z = make_uint4(zw[0], zw[1], zw[2], zw[3]);
+    for (int t = 0; t < nslot; ++t)
+      __stcs(reinterpret_cast<uint4*>(dst + (size_t)t * step), z);
+    if (mult > 0.0f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack2(zw[i]);
+        add_stats(s[2 * i], q[2 * i], mult, f.x);
+        add_stats(s[2 * i + 1], q[2 * i + 1], mult, f.y);
       }
     }
-    __syncthreads();  // sel is rewritten by the next centroid
+  } else {
+    const bf16 zb = __float2bfloat16_rn(__fsub_rn(tof(src[0]), qv[0]));
+    for (int t = 0; t < nslot; ++t) dst[(size_t)t * step] = zb;
+    if (mult > 0.0f) add_stats(s[0], q[0], mult, tof(zb));
   }
-  s = t3d::reduce_rg<t3d::kSum>(s, o, F, red);
-  q = t3d::reduce_rg<t3d::kSum>(q, o, F, red);
-  if (threadIdx.x < F) {
-    float* p = partials + (size_t)blockIdx.x * 2 * F;
-    p[threadIdx.x] = s;
-    p[F + threadIdx.x] = q;
+}
+
+// One warp a centroid. A row of F channels is cpr = F / V chunks of V
+// channels; L lanes (cpr rounded up to a power of two, at most 32) take a
+// row, lane j0 of them chunks j0, j0 + L, ... (J = ceil(cpr / L) of
+// them), so 32 / L rows move in a warp step. A lane owns its chunks'
+// channels in its row group rg for the whole walk: their qc values and a
+// centroid's sums stay in its registers, the walk's sums in its f64 slots
+// rg * F + channel of the warp's shared memory.
+template <int V>
+__global__ void __launch_bounds__(kExtMaxWarps * 32, 2)
+sa_extract_kernel(ExtArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kJ = kExtMaxCh / V;  // chunks a lane may own
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int K = p.K, F = p.F, cpr = F / V;
+  int L = 1;
+  while (L < cpr && L < 32) L <<= 1;
+  const int rpw = 32 / L, j0 = lane & (L - 1), rg = lane / L;
+  double* acc = reinterpret_cast<double*>(smem) +
+                (size_t)warp * 2 * kExtAccPairs;  // [2][rpw * F]
+  int* list = reinterpret_cast<int*>(reinterpret_cast<double*>(smem) +
+                                     (size_t)warps * 2 * kExtAccPairs) +
+              warp * extract_list_ints(K);
+  for (int i = lane; i < 2 * kExtAccPairs; i += 32) acc[i] = 0.0;
+  __syncwarp();
+
+  T3D_XCLK_START
+  for (int c = blockIdx.x * warps + warp; c < p.ncent;
+       c += gridDim.x * warps) {
+    const int b = c / p.S;
+    const float* pts = p.xyz + (size_t)b * p.N * 3;
+    const float cx = p.cent[(size_t)c * 3 + 0];
+    const float cy = p.cent[(size_t)c * 3 + 1];
+    const float cz = p.cent[(size_t)c * 3 + 2];
+    // the members (ball_select.cuh, shared with K2): the first K in radius
+    // by index, or the nearest point for an empty ball
+    int eff = 0, near_i = p.N;
+    float near_d = INFINITY;
+    for (int base = 0; base < p.N && eff < K; base += 4 * 32)
+      eff = t3d::ball_warp_step<4>(pts, base, p.N, cx, cy, cz, p.r2, K, eff,
+                                   list, -1, near_d, near_i);
+    if (eff == 0) {
+      const int nearest = t3d::ball_warp_nearest(near_d, near_i);
+      if (lane == 0) list[0] = nearest;
+      eff = 1;
+    }
+    __syncwarp();
+    T3D_XCLK(0)
+
+    // Slot k takes member k mod eff. Rows 0 .. P - 1 with P = eff (eff >=
+    // 32 / L) or the least multiple of eff that fills a warp step: row i
+    // holds member i mod eff and goes to the K / P + (i < K mod P) slots
+    // i, i + P, ... < K, and the sums count member m < eff once, with its
+    // slot count K / eff + (m < K mod eff).
+    const int P = eff >= rpw ? eff : eff * ((rpw + eff - 1) / eff);
+    const int rows = min(P, K);
+    const int qp = K / P, rp = K - qp * P, qe = K / eff, re = K - qe * eff;
+    float qv[kExtMaxCh], s[kExtMaxCh], q[kExtMaxCh];
+#pragma unroll
+    for (int t = 0; t < kJ; ++t) {
+      const int g = j0 + t * L;
+      const bf16* qs = p.qc + (size_t)c * F + g * V;
+      if constexpr (V == 8) {
+        const uint4 u = g < cpr ? __ldg(reinterpret_cast<const uint4*>(qs))
+                                : make_uint4(0, 0, 0, 0);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = unpack2(w[i]);
+          qv[t * V + 2 * i] = f.x;
+          qv[t * V + 2 * i + 1] = f.y;
+        }
+      } else {
+        qv[t * V] = g < cpr ? tof(qs[0]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kExtMaxCh; ++e) s[e] = q[e] = 0.0f;
+    const bf16* src = p.pf + (size_t)b * p.N * F;
+    bf16* dst = p.z1 + (size_t)c * K * F;
+    const size_t step = (size_t)P * F;
+    for (int i = rg; i < rows; i += rpw) {
+      const int m = i < eff ? i : i % eff;
+      const bf16* row = src + (size_t)list[m] * F;
+      const int nslot = qp + (i < rp);
+      const float mult = i < eff ? (float)(qe + (i < re)) : 0.0f;
+#pragma unroll
+      for (int t = 0; t < kJ; ++t) {
+        const int g = j0 + t * L;
+        if (g < cpr)
+          extract_chunk<V>(row + g * V, qv + t * V, dst + (size_t)i * F + g * V,
+                           step, nslot, mult, s + t * V, q + t * V);
+      }
+    }
+    // the centroid's sums into the lane's own f64 slots
+#pragma unroll
+    for (int t = 0; t < kJ; ++t) {
+      const int g = j0 + t * L;
+      if (g < cpr) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int i = rg * F + g * V + v;
+          acc[i] = __dadd_rn(acc[i], (double)s[t * V + v]);
+          acc[kExtAccPairs + i] =
+              __dadd_rn(acc[kExtAccPairs + i], (double)q[t * V + v]);
+        }
+      }
+    }
+    __syncwarp();  // the list is rewritten by the next centroid
+    T3D_XCLK(1)
   }
+
+  // The block's sums in f64: each warp's row groups in order, then the
+  // warps in order; then the blocks in order (reduce_partials), rounded to
+  // f32 once: the same bits run after run.
+  __syncthreads();
+  const double* all = reinterpret_cast<const double*>(smem);
+  for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) {
+    const int half = i / F, ch = i - half * F;
+    double sum = 0.0;
+    for (int w = 0; w < warps; ++w)
+      for (int r = 0; r < rpw; ++r)
+        sum = __dadd_rn(sum, all[((size_t)w * 2 + half) * kExtAccPairs +
+                                 r * F + ch]);
+    p.partials[(size_t)blockIdx.x * 2 * F + i] = sum;
+  }
+  T3D_XCLK(2)
 }
 
 // ----------------------------------------------------------- K6, K7 ------
@@ -427,21 +620,42 @@ bool bad_tile(int k, int f) {
 
 }  // namespace
 
-// z1 [B, S, K, F] bf16; partials f32 [grid, 2, F] scratch; sums f32 [2, F]
-// receives sum z1 and sum z1^2.
+// z1 [B, S, K, F] bf16; partials f64 [grid, 2, F] scratch; sums f32 [2, F]
+// receives sum z1 and sum z1^2. `warps` a block and `vec` (8: F a multiple
+// of 8 and pf 16-byte aligned; else 1) are the launcher's plan
+// (`sa_extract_plan`).
 extern "C" int t3d_sa_extract(const float* cent, const float* xyz,
                               const void* pf, const void* qc, void* z1,
-                              float* partials, float* sums, int b, int s,
-                              int n, int k, int f, float r2, int grid,
-                              void* stream) {
+                              double* partials, float* sums, int b, int s,
+                              int n, int k, int f, float r2, int warps,
+                              int vec, int grid, void* stream) {
   if (b < 1 || s < 1 || n < 1 || k < 1 || k > kMaxExtractK || f < 1 ||
-      f > t3d::kMaxF || grid < 1)
+      f > t3d::kMaxF || grid < 1 || warps < 1 || warps > kExtMaxWarps ||
+      (vec != 1 && vec != 8) || f % vec)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = extract_layout(k, f, warps);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)(k + 3 * kWarps + kThreads) * 4;
-  sa_extract_kernel<<<grid, kThreads, smem, st>>>(
-      cent, xyz, static_cast<const bf16*>(pf), static_cast<const bf16*>(qc),
-      static_cast<bf16*>(z1), partials, b * s, s, n, k, f, r2);
+  auto kern = vec == 8 ? sa_extract_kernel<8> : sa_extract_kernel<1>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ExtArgs a;
+  a.cent = cent;
+  a.xyz = xyz;
+  a.pf = static_cast<const bf16*>(pf);
+  a.qc = static_cast<const bf16*>(qc);
+  a.z1 = static_cast<bf16*>(z1);
+  a.partials = partials;
+  a.ncent = b * s;
+  a.S = s;
+  a.N = n;
+  a.K = k;
+  a.F = f;
+  a.r2 = r2;
+  kern<<<grid, warps * 32, smem, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)t3d::reduce_partials(partials, sums, grid, 2 * f, st);
@@ -454,6 +668,15 @@ extern "C" int t3d_sa_fwd_clocks(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, t3d_fwd_clk, sizeof(zero));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(t3d_fwd_clk, zero, sizeof(zero));
+  return (int)e;
+}
+
+// The same for K5's.
+extern "C" int t3d_sa_extract_clocks(unsigned long long* out) {
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, t3d_ext_clk, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(t3d_ext_clk, zero, sizeof(zero));
   return (int)e;
 }
 #endif

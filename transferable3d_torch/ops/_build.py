@@ -9,8 +9,8 @@ library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. With `T3D_KERNEL_CLOCKS=1` in the environment
-K2, K6/K7 and K8/K9 are compiled with their phase clocks, as a library of
-its own name. Nothing here runs at import time: the CPU tests import every
+K2, K5, K6/K7 and K8/K9 are compiled with their phase clocks, as a library
+of its own name. Nothing here runs at import time: the CPU tests import every
 module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
@@ -38,8 +38,8 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
-# Set to "1" before the first build of a process, this compiles K2, K6/K7
-# and K8/K9 with their phase clocks (scripts/torch_time_sa_fwd.py and
+# Set to "1" before the first build of a process, this compiles K2, K5,
+# K6/K7 and K8/K9 with their phase clocks (scripts/torch_time_sa_fwd.py and
 # scripts/torch_time_sa_bwd.py, --phases).
 CLOCKS_ENV = "T3D_KERNEL_CLOCKS"
 
@@ -54,8 +54,8 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer).
 _SIGNATURES = {
-    # xyz, out_idx, B, N, K, stream
-    "t3d_fps": [_P, _P, _I, _I, _I, _P],
+    # xyz, out_idx, B, N, K, threads, points a thread, stream
+    "t3d_fps": [_P, _P, _I, _I, _I, _I, _I, _P],
     # cent, xyz, pf, qc, params, pooled, B, S, N, K, depth, dims (host
     # int array), r2, stream
     "t3d_sa_infer": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
@@ -68,10 +68,9 @@ _SIGNATURES = {
     "t3d_extract_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # cent, xyz, dg, f32 workspace, dpay, B, S, N, K, C, r2, stream
     "t3d_extract_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # cent, xyz, pf, qc, z1, partials, sums, B, S, N, K, F0, r2, grid,
-    # stream
-    "t3d_sa_extract": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                       _I, _P],
+    # cent, xyz, pf, qc, z1, partials, sums, B, S, N, K, F0, r2, warps a
+    # block, channels an access, grid, stream
+    "t3d_sa_extract": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P],
     # z_prev, pack, f32 W (or bf16 W^T), bias, z_next, partials, sums, zmax,
     # zmin, centroids, K, F_in, F_out, last, centroids per tile, stages,
     # W in shared memory, grid, stream

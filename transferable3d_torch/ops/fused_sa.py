@@ -595,6 +595,44 @@ def _need_smem(what: str, smem: int) -> None:
                          f"(> {_SMEM_LIMIT})")
 
 
+class ExtractPlan(NamedTuple):
+    """How K5 runs one shape: `warps` a block (one centroid a warp),
+    `vec` channels a lane moves in one access (8: 16 bytes, where F0 is a
+    multiple of 8; else 1), `per_sm` blocks an SM, and the block's dynamic
+    shared memory in bytes."""
+    warps: int
+    vec: int
+    per_sm: int
+    smem: int
+
+
+# K5 (sa_train_fwd.cu): most warps a block; the shared memory of an SM
+# (228 KB, 1 KB of it reserved for each block).
+_EXT_MAX_WARPS, _EXT_ACC_PAIRS = 16, 256
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+
+
+def sa_extract_layout_bytes(k: int, f0: int, warps: int) -> int:
+    """Dynamic shared memory of one K5 block (mirrors `extract_layout` of
+    sa_train_fwd.cu): each warp's f64 sum and sum of squares for 256
+    (row group, channel) pairs, whatever F0, and its member list (K ints,
+    rounded up to 4)."""
+    return warps * (2 * _EXT_ACC_PAIRS * 8 + -(-k // 4) * 4 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def sa_extract_plan(k: int, f0: int) -> ExtractPlan:
+    """Sixteen warps a block where their lists fit (K up to 2,608), fewer
+    beyond; two blocks an SM where two fit (K up to 784)."""
+    per_warp = sa_extract_layout_bytes(k, f0, 1)
+    warps = min(_EXT_MAX_WARPS, _SMEM_LIMIT // per_warp)
+    if warps < 1:
+        raise ValueError(f"K5: no plan fits K={k}, F0={f0}")
+    smem = sa_extract_layout_bytes(k, f0, warps)
+    per_sm = 2 if 2 * (smem + _BLOCK_RESERVED) <= _SM_SMEM else 1
+    return ExtractPlan(warps, 8 if f0 % 8 == 0 else 1, per_sm, smem)
+
+
 def sa_extract_cuda(cent, xyz, pf, qc, radius: float, nsample: int):
     """Launch K5 on the current stream. Raises on anything it does not
     take; never falls back to the plain twin."""
@@ -611,16 +649,22 @@ def sa_extract_cuda(cent, xyz, pf, qc, radius: float, nsample: int):
             or not 1 <= f0 <= _TRAIN_MAX_F):
         raise ValueError(f"{what}: unsupported B={b} S={s} N={n} "
                          f"K={nsample} F0={f0}")
+    plan = sa_extract_plan(nsample, f0)
+    # 16-byte accesses need pf and qc on 16-byte boundaries (a contiguous
+    # view may start anywhere)
+    aligned = pf.data_ptr() % 16 == 0 and qc.data_ptr() % 16 == 0
+    vec = plan.vec if aligned else 1
     lib = _build.library()
-    grid = _grid(dev, b * s, 4)
+    grid = _grid(dev, -(-b * s // plan.warps), plan.per_sm)
     z1 = torch.empty(b, s, nsample, f0, dtype=_BF, device=dev)
-    part = torch.empty(grid, 2, f0, dtype=torch.float32, device=dev)
+    part = torch.empty(grid, 2, f0, dtype=torch.float64, device=dev)
     sums = torch.empty(2, f0, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = lib.t3d_sa_extract(
             cent.data_ptr(), xyz.data_ptr(), pf.data_ptr(), qc.data_ptr(),
             z1.data_ptr(), part.data_ptr(), sums.data_ptr(), b, s, n,
-            nsample, f0, radius_sq(radius), grid, _build.stream_ptr(dev))
+            nsample, f0, radius_sq(radius), plan.warps, vec, grid,
+            _build.stream_ptr(dev))
     _build.check(code, "t3d_sa_extract")
     _build.LAUNCHES["sa_extract"] += 1
     return z1, sums[0], sums[1]

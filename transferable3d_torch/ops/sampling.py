@@ -9,14 +9,39 @@ argmax with the first index winning ties. Indices are int32 [B, k].
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from transferable3d_torch.ops import _build
 from transferable3d_torch.ops.grouping import flat_row_gather
 
-# The kernel keeps x, y, z and the running distance of one batch row in
-# shared memory (16 bytes a point).
+# The kernel keeps a copy of one batch row's points in shared memory (16
+# bytes a point), and beyond 4,096 points their running distances too.
 FPS_MAX_POINTS = 12288
+_FPS_REG_POINTS = 4096
+
+
+class FpsPlan(NamedTuple):
+    """How K1 runs one batch row of n points: `threads` a block and
+    `per_thread` points a thread in registers (4 up to 2,048 points, 8 up
+    to 4,096), or 0 with the points and distances in shared memory and
+    1,024 threads; `smem` bytes of dynamic shared memory."""
+    threads: int
+    per_thread: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def fps_plan(n: int) -> FpsPlan:
+    """K1's block for n points (mirrored by `t3d_fps`'s checks in
+    csrc/fps.cu): as few warps as hold the points in registers."""
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"fps: N={n} not in [1, {FPS_MAX_POINTS}]")
+    per = 4 if n <= 2048 else 8 if n <= _FPS_REG_POINTS else 0
+    threads = 1024 if per == 0 else (-(-n // per) + 31) // 32 * 32
+    return FpsPlan(threads, per, 16 * n)
 
 
 def fps_plain(xyz: torch.Tensor, k: int) -> torch.Tensor:
@@ -56,10 +81,12 @@ def fps_cuda(xyz: torch.Tensor, k: int) -> torch.Tensor:
     b, n, _ = xyz.shape
     if not (1 <= n <= FPS_MAX_POINTS) or k < 1 or b < 1:
         raise ValueError(f"fps_cuda: unsupported B={b} N={n} k={k}")
+    plan = fps_plan(n)
     lib = _build.library()
     out = torch.empty(b, k, dtype=torch.int32, device=xyz.device)
     with torch.cuda.device(xyz.device):
         code = lib.t3d_fps(xyz.data_ptr(), out.data_ptr(), b, n, k,
+                           plan.threads, plan.per_thread,
                            _build.stream_ptr(xyz.device))
     _build.check(code, "t3d_fps")
     _build.LAUNCHES["fps"] += 1
