@@ -51,11 +51,14 @@ Training phases (T3D_FUSED_SA=0 set for them and restored after):
      and 8 K4 launches are required and the K3/K4 arguments captured;
      every loss term, metric and gradient finite; the all-zero gradient
      leaves listed; the ball shares of the 8 scales;
-  9. K3 and K4 vs their plain twins on the captured arguments, and again
-     with every other centroid moved 100 m away (empty balls): K3 rows
-     and counts identical; K4 >= 99.9% bit-identical, within 1 bf16 ulp
-     of the sum of the terms' magnitudes (the atomics add in another
-     order), and identical on integer-valued cotangents;
+  9. K3 and K4 vs their plain twins on the captured arguments, again
+     with every other centroid moved 100 m away (empty balls), and on the
+     probes of `_k3_k4_probes` (eff = 1 and K, N = 1 and 100, K = 4,096,
+     700 centroids, C of 20 and 3, unaligned rows): K3 rows and counts
+     identical; K4 bit-identical to the twin run on CPU copies of the
+     arguments (both add each point's slots in ascending (s, k) in f32
+     and round once), the same bits on two runs, and identical to the
+     twin on the card on integer-valued cotangents;
  10. one train step on 8 frustums (on a 1/256 grid around their own
      mean) on the card and on the CPU (plain twins) from copies of the
      same model, with one dropout keep mask: in float32, total loss
@@ -92,7 +95,12 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      against its unfused one; and at the batch that is trained (B = 128,
      pinned the same way) the card's fused gradient against its unfused
      one at the limits of `FULL_BATCH_COS`, beside two witnesses (each
-     path on the batch reversed) and five controls;
+     path on the batch reversed) and five controls; then, as readings, the
+     box net's gap taken apart (`_box_net_readings`): its largest leaves,
+     its cosine without the biases that are zero in exact arithmetic, each
+     such bias beside the f64 sum of its terms on both paths, a third step
+     (unfused, rounded where the fused kernels round) against both, and
+     each path against the card's float32 step;
  15. 30 fused train steps: losses finite, the mean of the last 5 below
      the first; then the fused step's time and peak memory beside the
      unfused step's from this run, and K5-K9 vs their twins at each of
@@ -589,11 +597,6 @@ def _ball_shares(cent, xyz, r, k):
         ("full", cnt == k), ("overfull", cnt > k))}
 
 
-def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bf16 unit in the last place of each value of x (float32)."""
-    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
-
-
 def _grads(model):
     return {k: (torch.zeros_like(p) if p.grad is None else p.grad).float()
             for k, p in model.named_parameters()}
@@ -870,6 +873,80 @@ def train_batch(cfg):
             for k, v in small.items()}
 
 
+def _check_k3_k4(tag, cent, xyz, pay, dg, r, k, gen, errs):
+    """K3 and K4 against their plain twins on one set of arguments. K3:
+    rows and counts identical (a gather is exact). K4: bit-identical to
+    `extract_bwd_plain` on CPU copies of the arguments, whose `index_add_`
+    adds each point's slots in ascending (s, k) from +0.0 in f32 as K4
+    does, the same bits on two runs, and identical to the twin on
+    integer-valued cotangents on the card; the share identical to the
+    twin run on the card (its `index_add_` adds with atomics, in no fixed
+    order) is printed as a reading. `errs` keeps the largest |diff| of
+    each kernel against the twin on the card."""
+    from transferable3d_torch.ops import grouping
+
+    n = xyz.shape[1]
+    got, cnt = grouping.extract_fwd_cuda(cent, xyz, pay, r, k)
+    ref, cref = grouping.extract_fwd_plain(cent, xyz, pay, r, k)
+    same = torch.equal(got, ref) and torch.equal(cnt, cref)
+    errs[0] = max(errs[0], float((got.float() - ref.float()).abs().max()))
+    have = grouping.extract_bwd_cuda(cent, xyz, dg, r, k)
+    again = grouping.extract_bwd_cuda(cent, xyz, dg, r, k)
+    on_cpu = grouping.extract_bwd_plain(cent.cpu(), xyz.cpu(), dg.cpu(), r,
+                                        k, n)
+    on_card = grouping.extract_bwd_plain(cent, xyz, dg, r, k, n)
+    exact = torch.equal(have.cpu(), on_cpu)
+    twice = torch.equal(have, again)
+    card_eq = float((have == on_card).float().mean())
+    errs[1] = max(errs[1], float((have.float() - on_card.float()).abs()
+                                 .max()))
+    dgi = torch.randint(-4, 5, dg.shape, generator=gen,
+                        device=dg.device).to(torch.bfloat16)
+    integer = torch.equal(grouping.extract_bwd_cuda(cent, xyz, dgi, r, k),
+                          grouping.extract_bwd_plain(cent, xyz, dgi, r, k,
+                                                     n))
+    print(f"phase 9{tag} B={cent.shape[0]} S={cent.shape[1]} N={n} K={k} "
+          f"C={pay.shape[-1]}: K3 identical {same}, empty "
+          f"{float((cnt == 0).float().mean()):.3f}, eff 1 "
+          f"{float((cnt == 1).float().mean()):.3f}, eff K "
+          f"{float((cnt >= k).float().mean()):.3f}; K4 identical to the CPU "
+          f"twin {exact}, the same twice {twice}, integer cotangents "
+          f"identical {integer}; reading: identical to the twin on the card "
+          f"{card_eq:.6f}", flush=True)
+    _check(same, "K3 disagrees with its plain twin")
+    _check(exact and twice and integer, "K4 disagrees with its plain twin")
+
+
+def _k3_k4_probes(dev, seed, gen, errs):
+    """K3 and K4 on seeded points beyond the main path's balls, at the
+    ends of their plans: every ball one member (eff = 1) and every ball
+    full (eff = K), N = 1, N not a multiple of 32, K = 4,096 (the largest
+    K, 3 warps a block in K3), 700 centroids (K4's gather in passes of
+    128), C not a multiple of 8 (one bf16 an access) and payload and
+    cotangent 2 bytes past a 16-byte boundary; every other centroid 100 m
+    away in each (empty balls)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b, n, s, r, k, c, off in (
+            (4, 512, 128, 1e-4, 64, 64, 0), (4, 512, 128, 100.0, 128, 128, 0),
+            (4, 1, 8, 0.4, 32, 64, 0), (4, 100, 40, 0.4, 64, 32, 0),
+            (2, 4500, 4, 100.0, 4096, 16, 0), (2, 1024, 700, 0.3, 16, 8, 0),
+            (4, 200, 40, 0.5, 24, 20, 0), (4, 256, 64, 0.4, 32, 3, 0),
+            (4, 1024, 128, 0.4, 64, 64, 1)):
+        xyz = torch.randn(b, n, 3, generator=g, device=dev) * 0.5
+        cent = xyz[:, torch.arange(s, device=dev) % n].clone()
+        cent[:, ::2] += 100.0
+
+        def bf16_rows(*shape):
+            t = torch.empty(math.prod(shape) + off, device=dev,
+                            dtype=torch.bfloat16)[off:]
+            t.copy_(torch.randn(math.prod(shape), generator=g, device=dev))
+            return t.view(shape)
+
+        _check_k3_k4(f" probe{' (unaligned)' if off else ''}", cent, xyz,
+                     bf16_rows(b, n, c), bf16_rows(b, s, k, c), r, k, gen,
+                     errs)
+
+
 def train(args, dev, card: str):
     """Phases 8-11 (training on the unfused path, T3D_FUSED_SA=0) and
     their times. Returns the kernels' JSON entries for K3 and K4, and what
@@ -945,8 +1022,9 @@ def _train(args, dev, card: str):
               flush=True)
 
     # 9. K3 and K4 vs their plain twins on the captured arguments (the
-    # backward runs the scales in another order: pair them by inputs)
-    fwd_err = bwd_err = 0.0
+    # backward runs the scales in another order: pair them by inputs), with
+    # every other centroid moved 100 m away, and on the probes
+    errs = [0.0, 0.0]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def key(a):
@@ -959,38 +1037,9 @@ def _train(args, dev, card: str):
         far = cent.clone()
         far[:, ::2] += 100.0
         for tag, c in (("", cent), (" empty-ball probe", far)):
-            got, cnt = grouping.extract_fwd_cuda(c, xyz, pay, r, k)
-            ref, cref = grouping.extract_fwd_plain(c, xyz, pay, r, k)
-            same = torch.equal(got, ref) and torch.equal(cnt, cref)
-            fwd_err = max(fwd_err, float((got.float() - ref.float())
-                                         .abs().max()))
-            n = xyz.shape[1]
-            have = grouping.extract_bwd_cuda(c, xyz, dg, r, k).float()
-            want = grouping.extract_bwd_plain(c, xyz, dg, r, k, n).float()
-            # One bf16 ulp of the sum of the terms' magnitudes: f32 sums
-            # taken in another order differ by up to that much, however
-            # much the terms cancel.
-            scale = grouping.extract_bwd_plain(c, xyz, dg.abs(), r, k, n,
-                                               torch.float32)
-            eq = float((have == want).float().mean())
-            err = float((have - want).abs().max())
-            within = bool(((have - want).abs() <= _bf16_ulp(scale)).all())
-            bwd_err = max(bwd_err, err)
-            dgi = torch.randint(-4, 5, dg.shape, generator=gen,
-                                device=dev).to(torch.bfloat16)
-            exact = torch.equal(grouping.extract_bwd_cuda(c, xyz, dgi, r, k),
-                                grouping.extract_bwd_plain(c, xyz, dgi, r,
-                                                           k, n))
-            print(f"phase 9{tag} S={c.shape[1]} N={n} K={k} "
-                  f"C={pay.shape[-1]}: K3 identical {same}, empty "
-                  f"{float((cnt == 0).float().mean()):.3f}; K4 "
-                  f"bit-identical {eq:.6f} max|diff| {err:.4g} within 1 "
-                  f"ulp of sum|terms| {within}, integer cotangents "
-                  f"identical {exact}",
-                  flush=True)
-            _check(same, "K3 disagrees with its plain twin")
-            _check(eq >= 0.999 and within and exact,
-                   "K4 disagrees with its plain twin")
+            _check_k3_k4(tag, c, xyz, pay, dg, r, k, gen, errs)
+    _k3_k4_probes(dev, args.seed, gen, errs)
+    fwd_err, bwd_err = errs
 
     # 10. the card against the CPU: one step on 8 frustums (SmallStep)
     one_step = SmallStep(cfg, initial, batch, lr, bn, args.seed, dev)
@@ -1070,11 +1119,12 @@ def _train(args, dev, card: str):
             tot_k += mk
             tot_p += mp
             cent, xyz, other, _, k = a
-            rows = cent.shape[0] * cent.shape[1] * k * other.shape[-1] * 2
-            # K3: payload in, rows and counts out; K4: rows in, dpay out
-            by = (_nbytes(cent, xyz, other) + rows + cent.shape[0]
-                  * (cent.shape[1] * 4 if name == "extract_fwd"
-                     else xyz.shape[1] * other.shape[-1] * 2))
+            b, s, c = cent.shape[0], cent.shape[1], other.shape[-1]
+            # K3: payload in, rows and counts out; K4: the rows (its `other`,
+            # dg) in, dpay out; each with the centroids and points in
+            by = _nbytes(cent, xyz, other) + (
+                b * s * k * c * 2 + b * s * 4 if name == "extract_fwd"
+                else b * xyz.shape[1] * c * 2)
             nbytes += by
             print(f"times {name} S={a[0].shape[1]} N={a[1].shape[1]} "
                   f"K={a[4]} C={a[2].shape[-1]}: kernel {mk:.4f} ms, plain "
@@ -1465,14 +1515,20 @@ def _full_batch_gradient(ctx, dev):
         with fused_sa_env("0"):
             return full(*a, **kw)
 
-    fused, unfused = full(bf, dev, True), unfused_step(bf, dev, True)
+    terms = {"fused": _BiasTerms(), "unfused": _BiasTerms()}
+    with terms["fused"].on(full, fused_sa):
+        fused = full(bf, dev, True)
+    with terms["unfused"].on(full):
+        unfused = unfused_step(bf, dev, True)
     _check(torch.equal(fused[2], unfused[2]) and bool(fused[2].all()),
            "B=128 bf16 masks differ or are not full")
+    reversed_ = (full(bf, dev, True, full.perm),
+                 unfused_step(bf, dev, True, full.perm))
     runs = {"card fused vs card unfused": compare(fused, unfused),
             "witness: card fused vs itself on the batch reversed":
-                compare(fused, full(bf, dev, True, full.perm)),
+                compare(fused, reversed_[0]),
             "witness: card unfused vs itself on the batch reversed":
-                compare(unfused, unfused_step(bf, dev, True, full.perm))}
+                compare(unfused, reversed_[1])}
     orig_bwd = fused_sa.sa_bwd_step, fused_sa.sa_bwd_step0
     fused_sa.sa_bwd_step = lambda train, *a: orig_bwd[0](False, *a)
     fused_sa.sa_bwd_step0 = lambda train, *a: orig_bwd[1](False, *a)
@@ -1492,6 +1548,195 @@ def _full_batch_gradient(ctx, dev):
     judge("phase 14 B=128", f"fused vs unfused on the card, bf16 ({B} "
           f"frustums, foreground margin {full.margin:.4g})",
           FULL_BATCH_COS, runs, controls)
+    rounded = full.adapt
+    full.adapt = _fused_rounding
+    try:
+        like_fused = unfused_step(bf, dev, True)
+    finally:
+        full.adapt = rounded
+    _box_net_readings(fused, unfused, reversed_, terms, like_fused,
+                      full(torch.float32, dev, True))
+
+
+def _dense_one_rounding(dense, x):
+    """A Dense as K6/K7 compute it: bf16 operands, f32 sums, the bias
+    added in f32, one bf16 rounding (`Dense.forward` rounds the product,
+    then adds the bias in bf16)."""
+    w = dense.weight.to(dense.dtype).float()
+    return (torch.matmul(x.to(dense.dtype).float(), w.t())
+            + dense.bias).to(dense.dtype)
+
+
+def _bn_pack_form(bn, x, momentum=0.9):
+    """A train-mode batch norm as K6/K7 apply it: bf16(z a + c) with a and
+    c from the batch statistics (`fused_sa._make_pack`), in place of
+    `ScheduledBatchNorm`'s bf16((z - mean) inv + beta)."""
+    from transferable3d_torch.ops import fused_sa
+
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=axes)
+    var = (xf * xf).mean(dim=axes) - mean * mean
+    with torch.no_grad():
+        bn.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.var.mul_(momentum).add_((1.0 - momentum) * var)
+    pack = fused_sa._make_pack(bn.scale, bn.bias, mean, var, bn.EPSILON)
+    return (xf * pack[0] + pack[1]).to(bn.dtype or x.dtype)
+
+
+def _fused_rounding(model):
+    """`SmallStep.adapt` for a reading of C3: the box net's grouped chains
+    on the unfused branch rounded where the fused kernels round
+    (`_dense_one_rounding` for every Dense after the first,
+    `_bn_pack_form` for every batch norm). In exact arithmetic the same
+    function, so it shows how far the two paths' rounding sites alone move
+    the gradient."""
+    from transferable3d_torch.models import pointnet2
+
+    for mod in model.box_net.modules():
+        if isinstance(mod, pointnet2.GroupedPointMLP):
+            for i in range(len(mod.features)):
+                bn = getattr(mod, f"bn_{i}")
+                bn.forward = functools.partial(_bn_pack_form, bn)
+                if i:
+                    dense = getattr(mod, f"dense_{i}")
+                    dense.forward = functools.partial(_dense_one_rounding,
+                                                      dense)
+
+
+def _cancelling(leaf: str) -> bool:
+    """A box-net leaf whose gradient is zero in exact arithmetic: the bias
+    of a Dense whose output a train-mode batch norm normalises (every
+    Dense of the box net but the head's f32 `out`)."""
+    parts = leaf.split(".")
+    return (parts[0] == "box_net" and parts[-1] == "bias"
+            and parts[-2].startswith(("dense_", "fc_")))
+
+
+class _BiasTerms:
+    """The terms of every box-net Dense bias's gradient, summed over rows
+    in f64 by channel, with the sum of their magnitudes: the cotangent of
+    the Dense's output (a hook on each call), and on the fused branch, for
+    the grouped chains' inner layers, which run in K6-K9, the dz that K8
+    and K9 sum into db, recomputed by its plain form
+    (`fused_sa._step_dz_plain`) from the kernels' own inputs and matched
+    to its leaf by the db the kernel returned."""
+
+    def __init__(self):
+        self.sums, self.calls = {}, []
+
+    @contextlib.contextmanager
+    def on(self, step, fused_sa=None):
+        from transferable3d_torch.models import layers
+
+        def adapt(model):
+            for name, mod in model.box_net.named_modules():
+                if isinstance(mod, layers.Dense) and mod.bias is not None:
+                    mod.register_forward_hook(functools.partial(
+                        self._hook, f"box_net.{name}.bias"))
+
+        saved = step.adapt
+        step.adapt = adapt
+        patched = []
+        if fused_sa is not None:
+            for fn_name, db_at in (("sa_bwd_step", 4), ("sa_bwd_step0", 3)):
+                orig = getattr(fused_sa, fn_name)
+                patched.append((fn_name, orig))
+                setattr(fused_sa, fn_name,
+                        functools.partial(self._record, orig, db_at))
+        try:
+            yield self
+        finally:
+            step.adapt = saved
+            for fn_name, orig in patched:
+                setattr(fused_sa, fn_name, orig)
+
+    def _hook(self, leaf, mod, args, out):
+        if out.requires_grad:
+            out.register_hook(functools.partial(self._add, leaf))
+
+    def _add(self, leaf, g):
+        g = g.double().reshape(-1, g.shape[-1])
+        s, a = self.sums.get(leaf, (0.0, 0.0))
+        self.sums[leaf] = (s + g.sum(0), a + g.abs().sum(0))
+
+    def _record(self, orig, db_at, train, top, z_j, z_j1, dy_src, *rest):
+        out = orig(train, top, z_j, z_j1, dy_src, *rest)
+        pack_j1 = rest[4] if db_at == 3 else rest[1]
+        self.calls.append((out[db_at].detach().cpu().clone(),
+                           (train, top, z_j1, dy_src, pack_j1)))
+        return out
+
+    def finish(self, grads):
+        """Match the recorded K8/K9 calls to their leaves by db, and add
+        their dz terms."""
+        from transferable3d_torch.ops import fused_sa
+
+        for db, args in self.calls:
+            for leaf in filter(_cancelling, grads):
+                if torch.equal(grads[leaf], db):
+                    dz = fused_sa._step_dz_plain(*args).double()
+                    dz = dz.reshape(-1, dz.shape[-1])
+                    self.sums[leaf] = (dz.sum(0), dz.abs().sum(0))
+        self.calls = []
+        return self
+
+
+def _box_net_readings(fused, unfused, reversed_, terms, like_fused, ref32):
+    """C3, taken apart (readings only): where in the box net the fused
+    and unfused gradients part; its cosines with the leaves that are zero
+    in exact arithmetic (`_cancelling`) left out, on the gated run, the
+    witnesses and the unfused step rounded where the fused kernels round
+    (`_fused_rounding`); each such leaf's gradient beside the f64 sum of
+    its terms and the sum of their magnitudes on both paths; and each bf16
+    path against the card's float32 step (unfused) on the same pinned
+    batch."""
+    def shares(ga, gb):
+        ks = [k for k in ga if k.startswith("box_net.")]
+        na = math.sqrt(sum(float(ga[k].double().square().sum()) for k in ks))
+        nb = math.sqrt(sum(float(gb[k].double().square().sum()) for k in ks))
+        return sorted(((0.5 * float((ga[k].double() / na
+                                     - gb[k].double() / nb).square().sum()),
+                        k) for k in ks), reverse=True)
+
+    def without(ga, gb):
+        ks = [k for k in ga if k.startswith("box_net.") and not _cancelling(k)]
+        return _cos(torch.cat([ga[k].ravel() for k in ks]),
+                    torch.cat([gb[k].ravel() for k in ks]))
+
+    pairs = {"fused vs unfused": (fused, unfused),
+             "fused vs itself reversed": (fused, reversed_[0]),
+             "unfused vs itself reversed": (unfused, reversed_[1]),
+             "unfused vs unfused with the fused rounding": (unfused,
+                                                            like_fused),
+             "fused vs unfused with the fused rounding": (fused, like_fused)}
+    for tag, (a, b) in pairs.items():
+        top = shares(a[1], b[1])
+        print(f"phase 14 B=128 C3 {tag}: box net 1 - cosine "
+              f"{sum(v for v, _ in top):.6f}, without the cancelling biases "
+              f"{1 - without(a[1], b[1]):.6f}; largest shares "
+              + ", ".join(f"{k} {v:.6f}" for v, k in top[:5]), flush=True)
+    grads = {"fused": fused[1], "unfused": unfused[1]}
+    terms["fused"].finish(fused[1])
+    box = {p: math.sqrt(sum(float(g[k].double().square().sum())
+                            for k in g if k.startswith("box_net.")))
+           for p, g in grads.items()}
+    for leaf in sorted(filter(_cancelling, fused[1])):
+        line = [f"phase 14 B=128 C3 leaf {leaf}: cosine "
+                f"{_cos(fused[1][leaf], unfused[1][leaf]):.5f}"]
+        for p in ("fused", "unfused"):
+            g = float(grads[p][leaf].double().norm())
+            s64, mag = terms[p].sums.get(leaf, (None, None))
+            line.append(
+                f"{p} |grad| {g:.4g} ({g / box[p]:.3g} of the box net's)" + (
+                    "; terms not seen" if s64 is None else
+                    f", |f64 sum of its terms| {float(s64.norm()):.4g}, "
+                    f"|sum of |terms|| {float(mag.norm()):.4g}, |grad| / "
+                    f"that {g / float(mag.norm()):.3g}"))
+        print("; ".join(line), flush=True)
+    for tag, run in (("fused", fused), ("unfused", unfused)):
+        show(f"phase 14 B=128 C3 bf16 {tag} vs the card's float32 step",
+             compare(run, ref32))
 
 
 def train_fused(args, dev, card: str, ctx):

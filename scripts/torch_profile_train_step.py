@@ -172,7 +172,7 @@ def main() -> None:
                   "host under the profiler")
     ours = [e for e in rows if "sa_" in e.key or "extract" in e.key
             or "fps" in e.key or "reduce_partials" in e.key
-            or "fetch_select" in e.key]
+            or "fetch_select" in e.key or "round_bf16" in e.key]
     for e in sorted(ours, key=dev_us, reverse=True):
         print(f"  kernel {e.key[:70]}: {dev_us(e) / 1e3 / args.steps:.3f} ms "
               f"a step ({dev_us(e) / total:.1%}), {e.count // args.steps} "

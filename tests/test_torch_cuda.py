@@ -9,6 +9,8 @@ JAX, so it also runs on the card's machine, which has none:
 chip_smoke.py runs the same comparisons at the full serving shapes.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -132,11 +134,6 @@ SLICE_SCALES = [(1024, 128, 0.2, 32, 32), (1024, 128, 0.4, 64, 64),
                 (512, 128, 0.2, 64, 64), (128, 32, 0.4, 64, 128)]
 
 
-def _bf16_ulp(x):
-    """One bf16 unit in the last place of each value of x (float32)."""
-    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
-
-
 def _extract_inputs(n, s, c, seed, dev, b=4):
     g = torch.Generator().manual_seed(seed)
     xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
@@ -162,15 +159,60 @@ def test_extract_kernels_equal_plain(n, s, r, k, c):
     ref, cref = grouping.extract_fwd_plain(cent, xyz, pay.detach(), r, k)
     assert torch.equal(cnt, cref) and (cref == 0).any()
     assert torch.equal(got, ref)
-    want = grouping.extract_bwd_plain(cent, xyz, dg, r, k, n).float()
-    have = pay.grad.float()
-    scale = grouping.extract_bwd_plain(cent, xyz, dg.abs(), r, k, n,
-                                       torch.float32)
-    assert (have == want).float().mean() >= 0.999
-    assert bool(((have - want).abs() <= _bf16_ulp(scale)).all())
-    dgi = torch.randint(-4, 5, got.shape, generator=g).to(dev).bfloat16()
+    _k4_exact(cent, xyz, dg, r, k, pay.grad, g)
+
+
+def _k4_exact(cent, xyz, dg, r, k, have, g):
+    """K4's result `have` bit-identical to the plain twin run on CPU copies
+    (both add each point's slots in ascending (s, k) in f32 and round
+    once), the same bits again, and identical to the twin on the card on
+    integer-valued cotangents."""
+    n = xyz.shape[1]
+    want = grouping.extract_bwd_plain(cent.cpu(), xyz.cpu(), dg.cpu(), r, k,
+                                      n)
+    assert torch.equal(have.cpu(), want)
+    assert torch.equal(grouping.extract_bwd_cuda(cent, xyz, dg, r, k), have)
+    dgi = torch.randint(-4, 5, dg.shape, generator=g).to(dg.device)
+    dgi = dgi.bfloat16()
     assert torch.equal(grouping.extract_bwd_cuda(cent, xyz, dgi, r, k),
                        grouping.extract_bwd_plain(cent, xyz, dgi, r, k, n))
+
+
+# K3 and K4 at the ends of their plans (B, N, S, radius, K, C, offset):
+# every ball one member and every ball full, N = 1 and N = 100, K = 4,096,
+# 700 centroids (K4's gather in passes of 128), C of 20 and 3 (one bf16 an
+# access), and rows 2 bytes past a 16-byte boundary.
+EXTRACT_PROBES = [(4, 512, 128, 1e-4, 64, 64, 0),
+                  (4, 512, 128, 100.0, 128, 128, 0), (4, 1, 8, 0.4, 32, 64, 0),
+                  (4, 100, 40, 0.4, 64, 32, 0),
+                  (2, 4500, 4, 100.0, 4096, 16, 0),
+                  (2, 1024, 700, 0.3, 16, 8, 0), (4, 200, 40, 0.5, 24, 20, 0),
+                  (4, 256, 64, 0.4, 32, 3, 0), (4, 1024, 128, 0.4, 64, 64, 1)]
+
+
+@pytest.mark.parametrize("b,n,s,r,k,c,off", EXTRACT_PROBES)
+def test_extract_kernels_at_their_plan_edges(b, n, s, r, k, c, off):
+    """K3's rows and counts identical to the twin's, K4 as `_k4_exact`
+    says, every other centroid 100 m away (empty balls)."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(n + s + k + c + off)
+    xyz = (torch.randn(b, n, 3, generator=g) * 0.5).to(dev)
+    cent = xyz[:, torch.arange(s) % n].clone()
+    cent[:, ::2] += 100.0
+
+    def rows(*shape):
+        t = torch.empty(math.prod(shape) + off, dtype=torch.bfloat16,
+                        device=dev)[off:]
+        t.copy_(torch.randn(math.prod(shape), generator=g))
+        return t.view(shape)
+
+    pay, dg = rows(b, n, c), rows(b, s, k, c)
+    got, cnt = grouping.extract_fwd_cuda(cent, xyz, pay, r, k)
+    ref, cref = grouping.extract_fwd_plain(cent, xyz, pay, r, k)
+    assert torch.equal(cnt, cref) and torch.equal(got, ref)
+    _k4_exact(cent, xyz, dg, r, k, grouping.extract_bwd_cuda(
+        cent, xyz, dg, r, k), g)
 
 
 def test_extract_kernels_refuse_bad_inputs():

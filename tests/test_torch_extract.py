@@ -6,7 +6,10 @@ K3's twin must equal the kernel bit for bit (rows and counts): both take
 the direct-form distance, so random coordinates off any grid are fine.
 K4's twin must equal the VJP exactly on integer-valued cotangents (every
 f32 partial sum is then exact) and within 1 bf16 ulp on continuous ones
-(f32 sums in another order, rounded to bf16 once on both sides).
+(f32 sums in another order, rounded to bf16 once on both sides). On the
+CPU the twin adds each point's slots in ascending (s, k), the order the
+card's K4 keeps, and K4's membership (`extract_members_plain`) gives back
+the JAX kernel's slots.
 """
 
 import jax
@@ -154,3 +157,107 @@ def test_autograd_function_on_cpu():
     ref, cref = tgrp.ball_query_group(tc.detach(), tx.detach(), tp.detach(),
                                       r, k, include_xyz=False)
     assert torch.equal(g2, ref) and torch.equal(c2, cref)
+
+
+def _members_np(cent, xyz, r, k):
+    """`extract_members_plain` as numpy arrays: bits and ranks before each
+    word [B, NW, S], eff [B, S]."""
+    bits, before, eff = tgrp.extract_members_plain(
+        torch.from_numpy(cent), torch.from_numpy(xyz), r, k)
+    return n(bits), n(before), n(eff)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_members_plain_gives_the_jax_kernels_slots(case):
+    """K4's membership (a word's bits, the members before it, eff) gives
+    back the JAX kernel's slots: member k mod eff in rank order, each rank
+    the members before the word plus the bits below the point."""
+    _, cent, xyz, pay, k, r = _inputs(case, 5)
+    ref, cref = jgrp.ball_query_extract(jnp.asarray(cent), jnp.asarray(xyz),
+                                        pay, r, k, True)
+    bits, before, eff = _members_np(cent, xyz, r, k)
+    b, s = cent.shape[:2]
+    assert bits.shape == before.shape == (b, -(-xyz.shape[1] // 32), s)
+    np.testing.assert_array_equal(eff, np.clip(np.asarray(cref), 1, k))
+    idx = np.zeros((b, s, k), np.int64)
+    for bb in range(b):
+        for ss in range(s):
+            members = [32 * w + lane for w in range(bits.shape[1])
+                       for lane in range(32) if bits[bb, w, ss] >> lane & 1]
+            assert len(members) == eff[bb, ss]
+            for rank, p in enumerate(members):
+                w, lane = divmod(p, 32)
+                below = int(bits[bb, w, ss]) & ((1 << lane) - 1)
+                if cref[bb, ss] > 0:
+                    assert before[bb, w, ss] + bin(below).count("1") == rank
+            idx[bb, ss] = [members[j % len(members)] for j in range(k)]
+    got = tgrp.flat_row_gather(t(pay), torch.from_numpy(idx))
+    np.testing.assert_array_equal(n(got), n(ref))
+
+
+def test_extract_members_bytes_fits_the_membership():
+    """The scratch K4's wrapper allocates: 8 bytes a centroid and 32-point
+    word, 4 a centroid for eff; at the largest unfused scale of a v2 train
+    step (B=128, S=128, N=1024) some 4.2 MB."""
+    _, cent, xyz, _, k, r = _inputs("mixed", 6)
+    bits, _, eff = _members_np(cent, xyz, r, k)
+    b, s, npt = cent.shape[0], cent.shape[1], xyz.shape[1]
+    assert (tgrp.extract_members_bytes(b, s, npt)
+            == bits.size * 8 + eff.size * 4)
+    assert tgrp.extract_members_bytes(128, 128, 1024) == 128 * 128 * 260
+    assert tgrp.extract_members_bytes(2, 3, 1) == 2 * 3 * 12
+    assert tgrp.extract_members_bytes(2, 3, 33) == 2 * 3 * 20
+
+
+# Heavy collisions: (B, S, N, K, C, radius). Few points in many full balls,
+# short balls repeating their members up to K times, empty balls.
+COLLIDE = {
+    "full_balls": (2, 32, 40, 64, 8, 5.0),
+    "short_balls": (2, 24, 64, 128, 8, 0.3),
+    "mixed": (3, 48, 96, 32, 16, 0.6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLLIDE))
+def test_bwd_plain_is_the_ascending_sequential_sum(case):
+    """`extract_bwd_plain` on the CPU is, bit for bit, each point's slots
+    summed from +0.0 in f32 in ascending (s, k) and rounded once: the
+    order the card's K4 is held to. The owner's walk of K4's gather over
+    the membership (ascending s; slots r, r + eff, ... < K for rank r)
+    gives the same bits."""
+    b, s, npt, k, c, r = COLLIDE[case]
+    rng = np.random.RandomState(7)
+    xyz = rng.normal(0, 0.6, (b, npt, 3)).astype(np.float32)
+    cent = xyz[:, rng.randint(0, npt, s)] + rng.normal(0, 0.05, (b, s, 3))
+    cent = cent.astype(np.float32)
+    cent[:, ::5] += 100.0
+    dg = torch.from_numpy(rng.normal(0, 1, (b, s, k, c)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    got = tgrp.extract_bwd_plain(torch.from_numpy(cent),
+                                 torch.from_numpy(xyz), dg, r, k, npt)
+    idx, _ = tgrp._extract_slots(torch.from_numpy(cent),
+                                 torch.from_numpy(xyz), r, k)
+    idx, d = idx.numpy(), dg.float().numpy()
+    hits = np.zeros((b, npt))
+    for bb in range(b):
+        np.add.at(hits[bb], idx[bb].ravel(), 1)
+    assert hits.max() >= 4 * k if case != "mixed" else hits.max() >= k
+    seq = np.zeros((b, npt, c), np.float32)
+    rows = np.arange(b)
+    for ss in range(s):
+        for kk in range(k):
+            seq[rows, idx[:, ss, kk]] += d[:, ss, kk]
+    assert torch.equal(got, torch.from_numpy(seq).to(torch.bfloat16))
+    bits, before, eff = _members_np(cent, xyz, r, k)
+    walk = np.zeros((b, npt, c), np.float32)
+    for bb in range(b):
+        for p in range(npt):
+            w, lane = divmod(p, 32)
+            for ss in range(s):
+                word = int(bits[bb, w, ss])
+                if word >> lane & 1:
+                    rank = before[bb, w, ss] + bin(
+                        word & ((1 << lane) - 1)).count("1")
+                    for kk in range(rank, k, eff[bb, ss]):
+                        walk[bb, p] += d[bb, ss, kk]
+    np.testing.assert_array_equal(walk, seq)

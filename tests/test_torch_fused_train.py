@@ -408,3 +408,49 @@ def test_module_reroutes_shapes_the_training_kernels_do_not_take(
             module().eval()(*args)
     assert seen == [1]
     assert _build.LAUNCHES["fused_sa_rerouted"] == before + 2
+
+
+def test_fused_and_unfused_steps_part_where_they_round():
+    """The box net's gradient from one bf16 step on 4 frustums (chip_smoke's
+    pinned `SmallStep`, plain twins on the CPU) on the fused branch, on the
+    unfused one, and on the unfused one rounded where the fused kernels
+    round (`chip_smoke._fused_rounding`: each inner Dense adds its bias in
+    f32 before its one rounding, each batch norm applies bf16(z a + c)).
+    The last is the same function in exact arithmetic; it lies as far from
+    the unfused step as the fused step does, and next to the fused step,
+    within twice either path's distance from itself on the batch reversed
+    (a hundredth of the paths' gap): the two branches part only where their
+    forwards round."""
+    import chip_smoke
+    from transferable3d_torch.core import bins
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.train import schedules
+
+    cfg, bf = bins.SUNRGBD, torch.bfloat16
+    initial = registry.get_model(
+        "frustum_pointnets_v2", cfg, dtype=bf, device="cpu",
+        generator=torch.Generator().manual_seed(1))
+    step = chip_smoke.SmallStep(
+        cfg, initial, chip_smoke.train_batch(cfg),
+        schedules.exponential_staircase_lr(batch_size=chip_smoke.B),
+        schedules.bn_momentum_schedule(batch_size=chip_smoke.B), 0, "cpu",
+        count=4)
+
+    def unfused(**kw):
+        with chip_smoke.fused_sa_env("0"):
+            return step(bf, "cpu", True, **kw)
+
+    def gap(a, b):
+        return 1.0 - chip_smoke.compare(a, b)[1]["box_net"]
+
+    with chip_smoke.fused_sa_env(None):
+        fused = step(bf, "cpu", True)
+        fused_rev = step(bf, "cpu", True, order=step.perm)
+    plain = unfused()
+    step.adapt = chip_smoke._fused_rounding
+    like_fused = unfused()
+    step.adapt = None
+    witness = max(gap(fused, fused_rev), gap(plain, unfused(order=step.perm)))
+    assert gap(fused, plain) > 20 * witness
+    assert gap(plain, like_fused) > 0.5 * gap(fused, plain)
+    assert gap(fused, like_fused) < 2 * witness

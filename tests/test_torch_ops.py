@@ -213,8 +213,8 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
 
 def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
     """T3D_KERNEL_CLOCKS=1 adds the define that compiles the phase clocks
-    of K2, K5, K6/K7 and K8/K9 in, under another library name; unset, the
-    flags are the plain ones."""
+    of K2, K4's gather, K5, K6/K7 and K8/K9 in, under another library name;
+    unset, the flags are the plain ones."""
     from transferable3d_torch.ops import _build
 
     monkeypatch.delenv(_build.CLOCKS_ENV, raising=False)
@@ -226,6 +226,7 @@ def test_phase_clocks_are_a_build_of_their_own(monkeypatch):
     for name, fn in (("sa_train_bwd.cu", "t3d_sa_bwd_clocks"),
                      ("sa_train_fwd.cu", "t3d_sa_fwd_clocks"),
                      ("sa_train_fwd.cu", "t3d_sa_extract_clocks"),
-                     ("sa_infer.cu", "t3d_sa_infer_clocks")):
+                     ("sa_infer.cu", "t3d_sa_infer_clocks"),
+                     ("ball_extract.cu", "t3d_extract_bwd_clocks")):
         src = (_build.SRC_DIR / name).read_text()
         assert "#ifdef T3D_KERNEL_CLOCKS" in src and fn in src

@@ -1,9 +1,11 @@
 // Ball-query selection shared by kernels K2 (sa_infer.cu), K3 and K4
 // (ball_extract.cu), K5 (sa_train_fwd.cu) and K9 (sa_train_bwd.cu), so
 // that they cannot disagree on a group's members: a block's selection
-// (`ball_select`, K3 and K4), the warps of a block sharing one centroid
-// (`ball_count_part` / `ball_place_part`, K9) and one warp a centroid
-// (`ball_warp_step` / `ball_warp_nearest`, K2 and K5).
+// (`ball_select`, K2's f32 body), the warps of a block sharing one
+// centroid (`ball_count_part` / `ball_place_part`, K9) and one warp a
+// centroid (`ball_warp_step` / `ball_warp_nearest`, K2 and K5;
+// `ball_warp_scan` with `ball_warp_nearest_of` for an empty ball, K3 and
+// K4, which also counts past K and gives the members as bit words).
 //
 // For one centroid c and the N points of its batch row (one block):
 //   d2     = ((0 + dx*dx) + dy*dy) + dz*dz, dx = c - p (direct form, each
@@ -166,6 +168,45 @@ __device__ __forceinline__ int ball_warp_step(const float* __restrict__ pts,
   return count;
 }
 
+// The same step for the warps of K3 and K4's membership pass, which need
+// more than the first K members: it returns the true in-radius count so
+// far (not capped at K), writes each member of rank below K to list[rank]
+// when `list` is given, and when `words` is given sets words[u] to the
+// ballot of those members among points base + 32 u .. base + 32 u + 31.
+// It keeps no nearest point: only an empty ball needs one, and
+// `ball_warp_nearest_of` finds it then.
+template <int W>
+__device__ __forceinline__ int ball_warp_scan(const float* __restrict__ pts,
+                                              int base, int N, float cx,
+                                              float cy, float cz, float r2,
+                                              int K, int count, int* list,
+                                              unsigned* words) {
+  const int lane = threadIdx.x & 31;
+  float d[W];
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int p = base + 32 * u + lane;
+    d[u] = p < N ? ball_d2(pts, p, cx, cy, cz) : INFINITY;
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const bool in = d[u] <= r2;
+    const unsigned m = __ballot_sync(kFullMask, in);
+    if (count + __popc(m) <= K) {  // every one of them has a rank below K
+      if (list != nullptr && in)
+        list[count + __popc(m & ((1u << lane) - 1u))] = base + 32 * u + lane;
+      if (words != nullptr) words[u] = m;
+    } else {
+      const int r = count + __popc(m & ((1u << lane) - 1u));
+      const bool keep = in && r < K;
+      if (list != nullptr && keep) list[r] = base + 32 * u + lane;
+      if (words != nullptr) words[u] = __ballot_sync(kFullMask, keep);
+    }
+    count += __popc(m);
+  }
+  return count;
+}
+
 __device__ __forceinline__ int ball_warp_nearest(float near_d, int near_i) {
   for (int o = 16; o > 0; o >>= 1) {
     const float od = __shfl_xor_sync(kFullMask, near_d, o);
@@ -176,6 +217,23 @@ __device__ __forceinline__ int ball_warp_nearest(float near_d, int near_i) {
     }
   }
   return near_i;
+}
+
+// The nearest of the N points, the lowest index on ties, in every lane of
+// the warp (for the empty balls of `ball_warp_scan`).
+__device__ __forceinline__ int ball_warp_nearest_of(
+    const float* __restrict__ pts, int N, float cx, float cy, float cz) {
+  const int lane = threadIdx.x & 31;
+  float near_d = INFINITY;
+  int near_i = N;
+  for (int p = lane; p < N; p += 32) {  // p rises: the lowest index stays
+    const float d = ball_d2(pts, p, cx, cy, cz);
+    if (d < near_d) {
+      near_d = d;
+      near_i = p;
+    }
+  }
+  return ball_warp_nearest(near_d, near_i);
 }
 
 // Every lane of the warp calls it; lane 0 writes *cnt, *nd and *ni.

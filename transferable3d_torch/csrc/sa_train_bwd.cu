@@ -110,8 +110,8 @@
 // (a thread's registers, or one thread's slot of shared memory), row
 // groups and warps are added in index order and the blocks' partials in
 // block order. Tie counts are integer atomics in shared memory. Only K9's
-// scatter uses floating-point atomics, into a zeroed f32 workspace as K4
-// does: cnt is exact (small integers), H and Mq are exact on
+// scatter uses floating-point atomics, into a zeroed f32 workspace: cnt
+// is exact (small integers), H and Mq are exact on
 // integer-valued inputs and otherwise within one ulp of the sum of the
 // terms' magnitudes. TMA, wgmma and two blocks per SM are later work.
 

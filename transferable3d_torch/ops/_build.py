@@ -9,8 +9,8 @@ library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. With `T3D_KERNEL_CLOCKS=1` in the environment
-K2, K5, K6/K7 and K8/K9 are compiled with their phase clocks, as a library
-of its own name. Nothing here runs at import time: the CPU tests import every
+K2, K4's gather, K5, K6/K7 and K8/K9 are compiled with their phase clocks,
+as a library of its own name. Nothing here runs at import time: the CPU tests import every
 module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
@@ -38,9 +38,9 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
-# Set to "1" before the first build of a process, this compiles K2, K5,
-# K6/K7 and K8/K9 with their phase clocks (scripts/torch_time_sa_fwd.py and
-# scripts/torch_time_sa_bwd.py, --phases).
+# Set to "1" before the first build of a process, this compiles K2, K4's
+# gather, K5, K6/K7 and K8/K9 with their phase clocks
+# (scripts/torch_time_sa_fwd.py and scripts/torch_time_sa_bwd.py, --phases).
 CLOCKS_ENV = "T3D_KERNEL_CLOCKS"
 
 LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
@@ -66,7 +66,7 @@ _SIGNATURES = {
     "t3d_sa_infer_mma": [_P] * 8 + [_I] * 5 + [_P, _P, _I, _F, _P],
     # cent, xyz, payload, out, count, B, S, N, K, C, r2, stream
     "t3d_extract_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # cent, xyz, dg, f32 workspace, dpay, B, S, N, K, C, r2, stream
+    # cent, xyz, dg, membership scratch, dpay, B, S, N, K, C, r2, stream
     "t3d_extract_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # cent, xyz, pf, qc, z1, partials, sums, B, S, N, K, F0, r2, warps a
     # block, channels an access, grid, stream

@@ -11,9 +11,12 @@ custom VJP does.
 
 The Pallas half, `ball_query_extract` (`_extract_fwd_kernel`,
 `_extract_bwd_kernel`), becomes `BallQueryExtract`: kernel K3 gathers the
-payload rows and kernel K4 scatter-adds their cotangent back
+payload rows and kernel K4 sums their cotangent back onto the points
 (csrc/ball_extract.cu), with the plain twins `extract_fwd_plain` and
-`extract_bwd_plain`. Both select with the direct-form distance of the
+`extract_bwd_plain`. K4 sums each point's slots in ascending (s, k), the
+order in which the twin's `index_add_` adds on the CPU, so the two agree
+bit for bit; `extract_members_plain` is the plain form of the membership
+K4 computes first. Both select with the direct-form distance of the
 TPU kernel, ((0 + dx*dx) + dy*dy) + dz*dz with dx = c - p, so the twins
 match the kernels at the radius boundary. `grouped_payload` takes them
 for a bf16 payload on CUDA, as the JAX package takes the kernel only for
@@ -33,6 +36,14 @@ from transferable3d_torch.ops import _build
 # csrc/ball_extract.cu keeps the K selected indices of one centroid in
 # shared memory (4 bytes each, within the default 48 KB).
 EXTRACT_MAX_K = 4096
+
+
+def extract_members_bytes(b: int, s: int, n: int) -> int:
+    """Bytes of K4's membership scratch: a `uint2` (the members' bits of
+    32 points, the rank of the first) per centroid and 32-point word,
+    then eff as an int32 per centroid (csrc/ball_extract.cu,
+    `t3d_extract_bwd`)."""
+    return b * s * (-(-n // 32) * 8 + 4)
 
 
 def radius_sq(radius: float) -> float:
@@ -186,6 +197,33 @@ def extract_fwd_plain(cent: torch.Tensor, xyz: torch.Tensor,
     return flat_row_gather(payload, idx), count
 
 
+def extract_members_plain(cent: torch.Tensor, xyz: torch.Tensor,
+                          radius: float, nsample: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The membership that K4 computes before it sums: for every centroid
+    and 32-point word w, the bits of the word's members (bit l for point
+    32 w + l: the first K in radius by index, or the nearest point for an
+    empty ball) and the number of in-radius members in the words before
+    it, both [B, ceil(N / 32), S] int64, and eff [B, S] int32. Point n's
+    rank among its centroid's members is the second plus the popcount of
+    the first's bits below n; slot k takes the member of rank k mod eff."""
+    d2 = direct_sqdist(cent, xyz)
+    b, s, n = d2.shape
+    nw = -(-n // 32)
+    within = d2 <= radius_sq(radius)
+    rank = torch.cumsum(within.to(torch.int32), dim=-1, dtype=torch.int32)
+    member = torch.zeros(b, s, nw * 32, dtype=torch.int64, device=d2.device)
+    member[..., :n] = (within & (rank <= nsample)).long()
+    per_word = member.view(b, s, nw, 32).sum(-1)
+    before = torch.cumsum(per_word, dim=-1) - per_word
+    empty = rank[..., -1] == 0
+    member[empty, torch.argmin(d2, dim=-1)[empty]] = 1
+    bits = (member.view(b, s, nw, 32)
+            << torch.arange(32, device=d2.device)).sum(-1)
+    eff = torch.clamp(rank[..., -1], 1, nsample).to(torch.int32)
+    return bits.transpose(1, 2), before.transpose(1, 2), eff
+
+
 def extract_bwd_plain(cent: torch.Tensor, xyz: torch.Tensor,
                       dg: torch.Tensor, radius: float, nsample: int,
                       n: int, dtype=torch.bfloat16) -> torch.Tensor:
@@ -249,9 +287,10 @@ def extract_fwd_cuda(cent: torch.Tensor, xyz: torch.Tensor,
 def extract_bwd_cuda(cent: torch.Tensor, xyz: torch.Tensor,
                      dg: torch.Tensor, radius: float, nsample: int
                      ) -> torch.Tensor:
-    """Launch K4 (scatter-add into a zeroed f32 workspace, then one
-    rounding pass) on the current stream: dg [B, S, K, C] bf16
-    contiguous -> dpay [B, N, C] bf16. Raises on anything else."""
+    """Launch K4 (the membership, then each element summed by its owner in
+    ascending (s, k): `extract_bwd_plain`'s CPU bits) on the current
+    stream: dg [B, S, K, C] bf16 contiguous -> dpay [B, N, C] bf16. Raises
+    on anything else."""
     if dg.dim() != 4:
         raise ValueError("extract_bwd_cuda: dg must be [B, S, K, C]")
     b, s, _, c = dg.shape
@@ -259,11 +298,13 @@ def extract_bwd_cuda(cent: torch.Tensor, xyz: torch.Tensor,
                         (b, s, nsample, c), nsample)
     n = xyz.shape[1]
     lib = _build.library()
-    acc = torch.zeros(b, n, c, dtype=torch.float32, device=dg.device)
+    members = torch.empty(extract_members_bytes(b, s, n), dtype=torch.uint8,
+                          device=dg.device)
     dpay = torch.empty(b, n, c, dtype=torch.bfloat16, device=dg.device)
     with torch.cuda.device(dg.device):
         code = lib.t3d_extract_bwd(
-            cent.data_ptr(), xyz.data_ptr(), dg.data_ptr(), acc.data_ptr(),
+            cent.data_ptr(), xyz.data_ptr(), dg.data_ptr(),
+            members.data_ptr(),
             dpay.data_ptr(), b, s, n, nsample, c, radius_sq(radius),
             _build.stream_ptr(dg.device))
     _build.check(code, "t3d_extract_bwd")
