@@ -11,8 +11,9 @@ after masking) and training as `v2_train`, on the unfused
 set-abstraction path (T3D_FUSED_SA=0) and on the fused one (the default).
 F-PointNet v1: the end-to-end step `e2e_train` (32 frames of 96x128
 depth with 4 boxes each -> `scene_to_train_batch` on the card -> one
-train step on the 128 frustums it emits), and `v1_infer`/`v1_train` on
-the synthetic frustums. Weights are random from a seeded
+train step on the 128 frustums it emits), the same step at SUN RGB-D's
+480x640 depth maps, and `v1_infer`/`v1_train` on the synthetic
+frustums. Weights are random from a seeded
 torch.Generator; the inputs are seeded synthetic frustums and scenes.
 
 Serving phases, one line each, under torch.no_grad():
@@ -119,9 +120,10 @@ model and the batch are built without `device` and must lie on the card):
      and a 37-point frustum (zeros and idx -1; every point, cyclically);
      480x640 depth maps (F=4, MB=4) at 1,024 and 2,048 points; a
      20,000-point cloud with C=4 through `crop_point_frustums`; 1,000
+     points; 530x730 depth maps (F=4, MB=4; a ragged last word) at 1,024
      points; each with a host check in numpy that shares no code with the
-     port (`idx == flatnonzero(inside)[want - 1]`), and every sampled
-     pixel of the main path inside its 2D box;
+     port (`idx == flatnonzero(inside)[want - 1]`); phase 16 also checks
+     every sampled pixel of the main path inside its 2D box;
  18. `scene_to_train_batch` on the card and on the CPU from one scene and
      one set of phases: idx, count, valid and the classes identical;
      points and center within 4e-6 (a few ulps at 8 m: sin, cos, atan2
@@ -137,7 +139,15 @@ model and the batch are built without `device` and must lie on the card):
      `scene_to_train_batch`;
  20. v1 with C=4 on the synthetic frustums: one train step with the IoU
      metrics, one predict step and `run_inference` over 4 batches, all
-     finite, no kernel launched; their times.
+     finite, no kernel launched; their times;
+ 21. the end-to-end step at SUN RGB-D's depth resolution: phase 16 with
+     32 synthetic 480x640 depth maps (`make_depth_scene(h=480, w=640)`,
+     4 boxes each: 128 frustums of 307,200 points, K15 spreading each
+     frustum over the blocks of its `fetch_select_plan`) and a fresh v1,
+     at phase 16's gates; K15 against its twin and the numpy host check
+     on the captured arguments, as in phase 17; then K15's time with its
+     bound and the twin's, the step's time, and `scene_to_train_batch`'s
+     time and share of the step.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks. Then a JSON line with the
@@ -2026,6 +2036,42 @@ def _want_np(u, count, npoints):
     return np.minimum(want, np.maximum(c, f32(1.0))).astype(np.int64)
 
 
+def _e2e_gates(launches, batch, metrics, model, scene_np) -> None:
+    """What an end-to-end step must show (phases 16 and 21): 1 K15 launch
+    and none of K1-K9; every frustum non-empty and valid, on the card;
+    every batch entry, loss term and gradient finite; the foreground share
+    of `seg` strictly between 0 and 1; every sampled pixel in its 2D
+    box."""
+    _expect_launches(launches, {"fetch_select": 1})
+    _check(all(v.device.type == "cuda" for v in batch.values()),
+           "a batch tensor left the card")
+    _check(tuple(batch["points"].shape) == (B, N, 3)
+           and bool((batch["count"] > 0).all())
+           and bool(batch["valid"].all()),
+           "an e2e frustum is empty or invalid")
+    _check(all(bool(torch.isfinite(v.float()).all())
+               for v in batch.values()), "a batch entry is not finite")
+    fg = float(batch["seg"].float().mean())
+    vals = {k: float(v) for k, v in metrics.items()}
+    print(f"  counts {int(batch['count'].min())}-"
+          f"{int(batch['count'].max())}, foreground share {fg:.4f}; "
+          + " ".join(f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
+    _check(0.0 < fg < 1.0, "seg labels are all one class")
+    _check(all(math.isfinite(v) for v in vals.values()),
+           "a loss term is not finite")
+    grads = _grads(model)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    _check(not bad, f"non-finite gradients: {bad}")
+    print(f"  gradients: {len(grads)} leaves finite", flush=True)
+    frames, mb = scene_np.boxes2d.shape[:2]
+    v_pix, u_pix = np.divmod(batch["idx"].cpu().numpy().reshape(
+        frames, mb, N), scene_np.depth.shape[-1])
+    b2d = scene_np.boxes2d[:, :, None, :]
+    _check(bool(((u_pix >= b2d[..., 0]) & (u_pix < b2d[..., 2])
+                 & (v_pix >= b2d[..., 1]) & (v_pix < b2d[..., 3])).all()),
+           "a sampled pixel lies outside its 2D box")
+
+
 def e2e(args, dev, card: str, ctx):
     """Phases 16-20: the end-to-end depth -> frustum -> F-PointNet v1
     train step (kernel K15), and v1 on the synthetic frustums. Returns
@@ -2092,27 +2138,7 @@ def e2e(args, dev, card: str, ctx):
     print(f"phase 16 e2e step (F={frames} frames x MB={mb} boxes, 96x128 "
           f"depth, {N} points, v1 bf16 C=3): launches {launches}",
           flush=True)
-    _expect_launches(launches, {"fetch_select": 1})
-    _check(all(v.device.type == "cuda" for v in batch.values()),
-           "a batch tensor left the card")
-    _check(tuple(batch["points"].shape) == (B, N, 3)
-           and bool((batch["count"] > 0).all())
-           and bool(batch["valid"].all()),
-           "an e2e frustum is empty or invalid")
-    _check(all(bool(torch.isfinite(v.float()).all())
-               for v in batch.values()), "a batch entry is not finite")
-    fg = float(batch["seg"].float().mean())
-    vals = {k: float(v) for k, v in metrics.items()}
-    print(f"  counts {int(batch['count'].min())}-"
-          f"{int(batch['count'].max())}, foreground share {fg:.4f}; "
-          + " ".join(f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
-    _check(0.0 < fg < 1.0, "seg labels are all one class")
-    _check(all(math.isfinite(v) for v in vals.values()),
-           "a loss term is not finite")
-    grads = _grads(model)
-    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
-    _check(not bad, f"non-finite gradients: {bad}")
-    print(f"  gradients: {len(grads)} leaves finite", flush=True)
+    _e2e_gates(launches, batch, metrics, model, scene_np)
 
     # 17. K15 vs its plain twin (a gather: exact) on the captured
     # arguments and on probes, with a host check in numpy
@@ -2129,7 +2155,7 @@ def e2e(args, dev, card: str, ctx):
 
     times = []
 
-    def k15_check(tag, a, time_it=True):
+    def k15_check(tag, a, time_it=True, phase="phase 17"):
         pts, inside, u, npoints = a
         got = frustum_jit.fetch_select_cuda(*a)
         ref = frustum_jit.fetch_select_plain(*a)
@@ -2150,7 +2176,7 @@ def e2e(args, dev, card: str, ctx):
             got[0], torch.where((got[1] < 0)[..., None], 0.0, pts[
                 torch.arange(pts.shape[0], device=dev)[:, None, None],
                 got[1].clamp(min=0).long()]))
-        line = (f"phase 17 {tag}: pts {list(pts.shape)} inside "
+        line = (f"{phase} {tag}: pts {list(pts.shape)} inside "
                 f"{list(inside.shape)} npoints {npoints}, counts "
                 f"{int(cnt.min())}-{int(cnt.max())}: sampled, idx, count "
                 f"identical to the twin {same} (max |diff| of sampled "
@@ -2205,13 +2231,18 @@ def e2e(args, dev, card: str, ctx):
     a, _ = captured(lambda: frustum_jit.lift_depth_frustums(
         scene.depth, scene.K, scene.boxes2d, 1000, gen))
     k15_check("e2e scene, npoints 1000", a)
-    # Every sampled pixel of the main path lies in its 2D box.
-    v_pix, u_pix = np.divmod(batch["idx"].cpu().numpy().reshape(
-        frames, mb, N), 128)
-    b2d = scene_np.boxes2d[:, :, None, :]
-    _check(bool(((u_pix >= b2d[..., 0]) & (u_pix < b2d[..., 2])
-                 & (v_pix >= b2d[..., 1]) & (v_pix < b2d[..., 3])).all()),
-           "a sampled pixel lies outside its 2D box")
+    # Kinect v2's 530x730 (a ragged last word of the mask, 4-byte loads).
+    k_v2 = np.array([[600.0, 0, 365.0], [0, 600.0, 265.0], [0, 0, 1]],
+                    np.float32)
+    depth = rng.uniform(0.5, 8.0, (4, 530, 730)).astype(np.float32)
+    depth[rng.rand(4, 530, 730) < 0.1] = 0.0
+    x0, y0 = rng.uniform(0, 490, (4, 4)), rng.uniform(0, 350, (4, 4))
+    boxes = np.stack([x0, y0, x0 + rng.uniform(20, 239.5, (4, 4)),
+                      y0 + rng.uniform(20, 179.5, (4, 4))],
+                     -1).astype(np.float32)
+    a, _ = captured(lambda: frustum_jit.lift_depth_frustums(
+        depth, k_v2, boxes, N, gen))
+    k15_check("530x730 depth, npoints 1024", a)
 
     # 18. card vs CPU: the preprocessing from one scene and one set of
     # phases, then one v1 step on 8 frustums of the card's batch
@@ -2354,6 +2385,44 @@ def e2e(args, dev, card: str, ctx):
           f"{B * 1000.0 / train_ms:.1f} frustums/s, peak device memory "
           f"{v1_peak / 2**30:.2f} GiB; predict step {pred_ms:.3f} ms, "
           f"{B * 1000.0 / pred_ms:.1f} frustums/s {card}", flush=True)
+
+    # 21. the e2e step at SUN RGB-D's depth resolution, 480x640
+    t0 = time.perf_counter()
+    full_np, _ = depth_pipeline.make_depth_scene(
+        np.random.RandomState(args.seed + 8), cfg, n_frames=frames,
+        boxes_per_frame=mb, h=480, w=640)
+    full = depth_pipeline.scene_to_device(full_np)
+    scene_s = time.perf_counter() - t0
+    full_model = registry.get_model(
+        "frustum_pointnets_v1", cfg, dtype=torch.bfloat16, in_channels=3,
+        generator=torch.Generator().manual_seed(args.seed + 9))
+    full_state = train_loop.create_train_state(
+        full_model, train_loop.make_optimizer(lr), seed=args.seed)
+
+    def full_step():
+        bt = depth_pipeline.scene_to_train_batch(full, gen, N, cfg)
+        return bt, step(full_state, bt)[1]
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    full_args, (batch, metrics) = captured(full_step)
+    torch.cuda.synchronize()
+    full_launches = dict(_build.LAUNCHES)
+    plan = frustum_jit.fetch_select_plan(full_args[0].shape[1], B)
+    print(f"phase 21 e2e step at 480x640 (F={frames} frames x MB={mb} "
+          f"boxes, {N} points, v1 bf16 C=3; scene made in {scene_s:.2f} s): "
+          f"launches {full_launches}; K15 plan {plan}", flush=True)
+    _e2e_gates(full_launches, batch, metrics, full_model, full_np)
+    k15_check("480x640 e2e step", full_args, phase="phase 21")
+    full_ms = _time_ms(full_step, 1, 5)
+    full_prep = _time_ms(lambda: depth_pipeline.scene_to_train_batch(
+        full, gen, N, cfg), 1, 5)
+    print(f"times e2e step at 480x640 B={B}: {full_ms:.3f} ms, "
+          f"{B * 1000.0 / full_ms:.1f} frustums/s; scene_to_train_batch "
+          f"alone {full_prep:.3f} ms = {100 * full_prep / full_ms:.1f}% of "
+          f"the step; K15 {times[-1][0]:.4f} ms (bound {times[-1][2][0]:.4f}"
+          f" ms, plain {times[-1][1]:.4f} ms); phase 21 took "
+          f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
 
     return [_entry("fetch_select", K15_SOURCE, K15_REPLACES,
                    launches["fetch_select"], main_err, main_ms, main_plain,

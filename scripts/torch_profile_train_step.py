@@ -1,7 +1,7 @@
 """Where a train step of the PyTorch port spends its time on the card.
 
     python3 scripts/torch_profile_train_step.py [--fused 0|1] [--steps 3]
-    python3 scripts/torch_profile_train_step.py --model v1 [--e2e]
+    python3 scripts/torch_profile_train_step.py --model v1 [--e2e [--hw 480x640]]
     python3 scripts/torch_profile_train_step.py --predict [--root PATH]
 
 Builds F-PointNet v2 (or, with `--model v1`, v1) in bf16 at the
@@ -10,7 +10,9 @@ points; seeded weights and the port's synthetic batch). With `--e2e`
 (v1 only) the step is chip_smoke's end-to-end one: every step lifts 128
 frustums of 3 channels from 32 synthetic 96x128 depth maps on the card
 (`scene_to_train_batch`, kernel K15) and trains on them, and the
-preprocessing's share of the step's device time is printed. Runs 3
+preprocessing's share of the step's device time and its kernels are
+printed; `--hw 480x640` takes the depth maps at SUN RGB-D's resolution
+(chip_smoke.py's phase 21) instead of `bench.py`'s reduced one. Runs 3
 warm-up steps, times `--steps` steps with CUDA
 events, then profiles the same number of steps with `torch.profiler` and
 prints: the step time, the device time per step (the sum of the kernels'
@@ -44,6 +46,8 @@ def main() -> None:
     ap.add_argument("--model", default="v2", choices=("v1", "v2"))
     ap.add_argument("--e2e", action="store_true",
                     help="v1 only: depth maps -> frustums -> step")
+    ap.add_argument("--hw", default="96x128",
+                    help="--e2e: the depth maps' height x width")
     ap.add_argument("--predict", action="store_true",
                     help="v2's predict step (serving) instead of a train step")
     ap.add_argument("--root", default=ROOT,
@@ -54,6 +58,7 @@ def main() -> None:
     sys.path.insert(0, os.path.abspath(args.root))
     if args.e2e and args.model != "v1":
         ap.error("--e2e runs F-PointNet v1: pass --model v1")
+    h, w = (int(x) for x in args.hw.split("x"))
     if args.predict and (args.e2e or args.model != "v2"):
         ap.error("--predict runs F-PointNet v2's predict step")
     if not torch.cuda.is_available():
@@ -106,13 +111,16 @@ def main() -> None:
     elif args.e2e:
         scene = depth_pipeline.scene_to_device(depth_pipeline.make_depth_scene(
             np.random.RandomState(args.seed), cfg, n_frames=nb // 4,
-            boxes_per_frame=4, h=96, w=128)[0], dev)
+            boxes_per_frame=4, h=h, w=w)[0], dev)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+        def prep():
+            return depth_pipeline.scene_to_train_batch(
+                scene, gen, chip_smoke.N, cfg, device=dev)
 
         def step():
             with torch.profiler.record_function("scene_to_train_batch"):
-                batch = depth_pipeline.scene_to_train_batch(
-                    scene, gen, chip_smoke.N, cfg, device=dev)
+                batch = prep()
             train_step(state, batch)
     else:
         batch = chip_smoke.train_batch(cfg)
@@ -142,7 +150,7 @@ def main() -> None:
     rows = [e for e in events if e.device_type == DeviceType.CUDA]
     total = sum(dev_us(e) for e in rows)
     kernels = sum(e.count for e in rows)
-    path = ("v1, end to end from depth maps" if args.e2e else "v1"
+    path = (f"v1, end to end from {h}x{w} depth maps" if args.e2e else "v1"
             if args.model == "v1" else "fused (T3D_FUSED_SA unset)"
             if args.fused else "T3D_FUSED_SA=0")
     what = "predict step" if args.predict else "train step"
@@ -183,6 +191,28 @@ def main() -> None:
     for e in top:
         print(f"    {e.key}: {dev_us(e) / 1e3 / args.steps:.3f} ms a step "
               f"({dev_us(e) / total:.1%}), {e.count // args.steps} calls")
+    if not args.e2e:
+        return
+    # The preprocessing alone: its kernels and operators by device time.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            prep()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    ptot = sum(dev_us(e) for e in rows)
+    print(f"  scene_to_train_batch alone: {ptot / 1e3 / args.steps:.3f} ms "
+          f"of device time a call in {sum(e.count for e in rows) // args.steps}"
+          " kernels; kernels by their own device time:")
+    for e in sorted(rows, key=dev_us, reverse=True)[:10]:
+        print(f"    {e.key[:90]}: {dev_us(e) / 1e3 / args.steps:.4f} ms "
+              f"({dev_us(e) / ptot:.1%}), {e.count // args.steps} launches")
+    print("    operators:")
+    for e in sorted((e for e in events if e.key.startswith("aten::")),
+                    key=dev_us, reverse=True)[:10]:
+        print(f"    {e.key}: {dev_us(e) / 1e3 / args.steps:.4f} ms "
+              f"({dev_us(e) / ptot:.1%}), {e.count // args.steps} calls")
 
 
 if __name__ == "__main__":

@@ -674,29 +674,89 @@ def test_sa_train_kernels_refuse_bad_inputs():
                                  z[:, :, 0].contiguous(), 0.4, 16)
 
 
-@pytest.mark.parametrize("f,mb,n,c,npoints", [
-    (3, 4, 12288, 3, 1024), (2, 2, 20000, 4, 1000), (1, 3, 307200, 3, 2048),
-    (2, 5, 100, 3, 64)])
-def test_fetch_select_kernel_equals_plain(f, mb, n, c, npoints):
+# K15's cases: (kind, F, MB, N, C, npoints). Random masks at the e2e
+# shapes (96x128 and 480x640 at 128 frustums), at 530x730 (a ragged last
+# word, 4-byte loads), N below 32 (4-byte and 1-byte loads), N a multiple
+# of 32, and the largest N the plan takes (the most shared memory); every
+# point in or none; one block's span without an in-box point; in-box
+# points only in the first word of each block's span, so that every rank
+# falls on a block's first word; a mask that starts off a 16-byte
+# boundary (1-byte loads).
+FETCH_CASES = [
+    ("random", 3, 4, 12288, 3, 1024), ("random", 2, 2, 20000, 4, 1000),
+    ("random", 1, 3, 307200, 3, 2048), ("random", 2, 5, 100, 3, 64),
+    ("random", 32, 4, 12288, 3, 1024), ("random", 32, 4, 307200, 3, 1024),
+    ("random", 2, 4, 386900, 3, 1024), ("random", 2, 3, 20, 3, 64),
+    ("random", 1, 2, 5, 3, 16), ("random", 2, 3, 4096, 3, 256),
+    ("random", 1, 1, frustum_jit.FETCH_MAX_POINTS, 3, 1024),
+    ("all_in", 2, 4, 307200, 3, 1024), ("all_in", 3, 4, 12288, 3, 1024),
+    ("all_out", 2, 4, 307200, 3, 1024), ("empty_span", 2, 4, 307200, 3, 1024),
+    ("empty_span", 32, 4, 307200, 3, 1024),
+    ("first_words", 2, 4, 307200, 3, 1024),
+    ("first_words", 2, 4, 386900, 3, 1024),
+    ("unaligned", 2, 4, 307200, 3, 1024)]
+
+
+def _fetch_mask(kind, f, mb, n, g):
+    plan = frustum_jit.fetch_select_plan(n, f * mb)
+    span = plan.span * 32                      # points a block owns
+    if kind == "all_in":
+        return torch.ones(f, mb, n, dtype=torch.bool)
+    if kind == "all_out":
+        return torch.zeros(f, mb, n, dtype=torch.bool)
+    inside = torch.rand(f, mb, n, generator=g) < 0.3
+    if kind == "empty_span":
+        assert plan.group > 1
+        inside[..., span:2 * span] = False
+    elif kind == "first_words":
+        assert plan.group > 1
+        first = torch.zeros(n, dtype=torch.bool)
+        for lo in range(0, n, span):
+            first[lo:lo + 32] = True
+        inside &= first
+    return inside
+
+
+@pytest.mark.parametrize("kind,f,mb,n,c,npoints", FETCH_CASES)
+def test_fetch_select_kernel_equals_plain(kind, f, mb, n, c, npoints):
     """K15 is a rank search and a gather: identical to its twin, empty
-    and short frustums included."""
+    and short frustums included, and the same bits on a second run."""
     _need_cuda()
     g = torch.Generator().manual_seed(f * n + npoints)
     pts = (torch.rand(f, n, c, generator=g) * 8 - 4).cuda()
-    inside = (torch.rand(f, mb, n, generator=g) < 0.3).cuda()
-    inside[0, 0] = False                       # an empty frustum
-    inside[0, 1, 17:] = False                  # fewer points than slots
+    inside = _fetch_mask(kind, f, mb, n, g)
+    if kind == "random":
+        inside[0, 0] = False                   # an empty frustum
+        inside[0, 1 % mb, 17:] = False         # fewer points than slots
+    if kind == "unaligned":
+        buf = torch.zeros(inside.numel() + 1, dtype=torch.bool,
+                          device="cuda")
+        buf[1:] = inside.reshape(-1).cuda()
+        inside = buf[1:].view(f, mb, n)
+        assert inside.is_contiguous() and inside.data_ptr() % 16 != 0
+    inside = inside.cuda()
     u = torch.rand(f, mb, generator=g).cuda()
     u[0, -1] = 0.0
     before = _build.LAUNCHES["fetch_select"]
     got = frustum_jit.fetch_select(pts, inside, u, npoints)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fetch_select"] == before + 1
+    again = frustum_jit.fetch_select(pts, inside, u, npoints)
     ref = frustum_jit.fetch_select_plain(pts, inside, u, npoints)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
-    assert (got[1][0, 0] == -1).all() and (got[0][0, 0] == 0).all()
-    assert got[2][0, 0] == 0
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    count = inside.sum(-1, dtype=torch.int32)
+    assert torch.equal(got[2], count)
+    if kind in ("random", "all_out"):
+        assert (got[1][0, 0] == -1).all() and (got[0][0, 0] == 0).all()
+        assert got[2][0, 0] == 0
+    if kind == "all_in":
+        want = frustum_jit.want_ranks(u, count.float(), npoints)
+        assert torch.equal(got[1], want.int() - 1)
+    if kind == "first_words":
+        span = frustum_jit.fetch_select_plan(n, f * mb).span * 32
+        assert bool(((got[1] % span) < 32).all())
 
 
 def test_fetch_select_kernel_refuses_bad_inputs():

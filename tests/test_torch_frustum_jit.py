@@ -150,6 +150,53 @@ def test_fetch_twin_matches_jax_kernel_and_xla(npoints):
     assert len(np.unique(idx[5])) == int(cnt[5])  # every point, cyclically
 
 
+# K15's launch shapes: masks from 1 point to the largest the kernel
+# takes, one frustum to a thousand.
+PLAN_SHAPES = [(n, fr) for n in (1, 31, 32, 33, 100, 12288, 20000, 307200,
+                                 386900, 900000, tfj.FETCH_MAX_POINTS)
+               for fr in (1, 16, 128, 1024)]
+
+
+@pytest.mark.parametrize("n,frustums", PLAN_SHAPES)
+def test_fetch_select_plan_gives_every_word_one_block(n, frustums):
+    """Block k of the launch serves frustum k // group and owns the words
+    [g * span, (g + 1) * span) of it, g = k % group: every word of every
+    frustum has exactly one owner, every block at least one word; the
+    group is a portable cluster (at most 8 blocks); shared memory, 8 bytes
+    a word, stays within the 227 KB a block can have; the loads divide
+    N."""
+    plan = tfj.fetch_select_plan(n, frustums)
+    nwords = -(-n // 32)
+    blocks = np.arange(frustums * plan.group)
+    b, g = blocks // plan.group, blocks % plan.group
+    np.testing.assert_array_equal(np.bincount(b, minlength=frustums),
+                                  plan.group)
+    # Each frustum's blocks are ranks 0..group-1, so its words' owners:
+    lo = np.arange(plan.group) * plan.span
+    hi = np.minimum(lo + plan.span, nwords)
+    assert (hi > lo).all()
+    owners = np.zeros(nwords + 1, np.int64)
+    np.add.at(owners, lo, 1)
+    np.add.at(owners, hi, -1)
+    assert (np.cumsum(owners)[:nwords] == 1).all()
+    assert 1 <= plan.group <= tfj.FETCH_MAX_GROUP == 8
+    assert plan.smem == 8 * plan.span <= 232_448
+    assert plan.vec in (1, 4, 16) and n % plan.vec == 0
+    assert tfj.fetch_select_plan(n, frustums) is plan   # computed once
+
+
+def test_fetch_select_plan_fills_the_card_at_full_resolution_only():
+    """One block a frustum at the 96x128 e2e shape (384 words, 128
+    frustums); more at 480x640, where 16 frustums alone would leave most
+    of the card idle; the plan refuses masks beyond FETCH_MAX_POINTS."""
+    assert tfj.fetch_select_plan(96 * 128, 128).group == 1
+    assert tfj.fetch_select_plan(480 * 640, 16).group > 1
+    assert tfj.fetch_select_plan(480 * 640, 128).group > 1
+    assert tfj.FETCH_MAX_POINTS >= 900_000
+    with pytest.raises(ValueError, match="exceeds"):
+        tfj.fetch_select_plan(tfj.FETCH_MAX_POINTS + 32, 1)
+
+
 def test_fetch_select_refuses_bad_arguments():
     pts = torch.zeros(1, 64, 3)
     inside = torch.zeros(1, 2, 64, dtype=torch.bool)
@@ -202,6 +249,52 @@ def test_lift_depth_frustums_matches_jax(npoints):
                                   tout.points.numpy())
     np.testing.assert_array_equal(both.idx[1].numpy()[::-1],
                                   tout.idx.numpy())
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (530, 730)])
+def test_lift_depth_frustums_matches_jax_at_sensor_resolution(h, w):
+    """SUN RGB-D's depth resolutions (Kinect v1 and Xtion; Kinect v2),
+    3 boxes, 1,024 points, with the phases JAX drew. 530 x 730 = 386,900
+    points is not a multiple of 32 (the port's last word is ragged) and
+    JAX pads it to 128. count exact; idx the JAX ranks' points exactly;
+    angle 1e-6; the points as `assert_points_close` states."""
+    rng = np.random.RandomState(h)
+    depth = rng.uniform(0.5, 8.0, (h, w)).astype(np.float32)
+    depth[rng.rand(h, w) < 0.1] = 0.0
+    k = np.array([[520.0, 0, w / 2], [0, 520.0, h / 2], [0, 0, 1]],
+                 np.float32)
+    # A large box, a box in the last rows and columns, and one with fewer
+    # points than slots (it wraps).
+    boxes = np.array([[100, 80, 420.5, 330.25], [w - 61.5, h - 40.25, w, h],
+                      [10, 10, 40, 35]], np.float32)
+    npoints, key = 1024, jax.random.PRNGKey(h)
+    jout = jfj.lift_depth_frustums(jnp.asarray(depth), jnp.asarray(k),
+                                   jnp.asarray(boxes), npoints, key)
+    phases = jax_phases(key, len(boxes))
+    tout = tfj.lift_depth_frustums(depth, k, boxes, npoints, phases,
+                                   device="cpu")
+    np.testing.assert_array_equal(tout.count.numpy(), np.asarray(jout.count))
+    assert tout.count[2] < npoints < tout.count[1] < tout.count[0]
+    # JAX's own ranks over its (padded) mask name the port's points.
+    n = h * w
+    pad = -n % 128
+    vs, us = np.divmod(np.arange(n + pad), w)
+    valid = np.concatenate([depth.reshape(-1) > 1e-6, np.zeros(pad, bool)])
+    inside = (valid & (us >= boxes[:, None, 0]) & (us < boxes[:, None, 2])
+              & (vs >= boxes[:, None, 1]) & (vs < boxes[:, None, 3]))
+    _, _, _, want, _ = jax.vmap(
+        lambda i, u: jfj._select_prelude(i, npoints, u))(
+            jnp.asarray(inside), jnp.asarray(phases))
+    want = np.asarray(want).astype(np.int64)
+    for i in range(len(boxes)):
+        np.testing.assert_array_equal(
+            tout.idx[i].numpy(), np.flatnonzero(inside[i])[want[i] - 1])
+    np.testing.assert_allclose(tout.frustum_angle.numpy(),
+                               np.asarray(jout.frustum_angle), atol=1e-6)
+    grid, _ = tfj.depth_to_camera_points(torch.from_numpy(depth),
+                                         torch.from_numpy(k))
+    assert_points_close(tout.points, jout.points,
+                        grid.numpy()[tout.idx.numpy()], tout.frustum_angle)
 
 
 def test_crop_point_frustums_matches_jax():

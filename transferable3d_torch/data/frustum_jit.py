@@ -41,8 +41,48 @@ from transferable3d_torch import resolve_device
 from transferable3d_torch.core import geometry
 from transferable3d_torch.ops import _build
 
-# The kernel keeps 8 bytes of shared memory per 32 points.
-FETCH_MAX_POINTS = 900_000
+# K15's launch shape (csrc/fetch_select.cu): a group of up to 8 blocks
+# a frustum (the portable thread-block cluster size), each owning a span
+# of 32-point words and keeping 8 bytes of shared memory a word.
+FETCH_MAX_GROUP = 8
+_FETCH_MAX_SPAN = 28_672     # words: 229,376 bytes, the kernel's kMaxSpan
+# Below 512 words (16 KB of mask) a second block only adds the latency of
+# the group's barrier; some 2 x 132 blocks of 512 threads fill an H100.
+_FETCH_MIN_SPAN = 512
+_FETCH_FILL = 2 * 132
+FETCH_MAX_POINTS = FETCH_MAX_GROUP * _FETCH_MAX_SPAN * 32   # 7,340,032
+
+
+class FetchPlan(NamedTuple):
+    """How K15 covers one shape: `group` blocks a frustum (a cluster
+    where more than one), each owning `span` 32-point words (the last one
+    at least one), `vec` mask bytes a load, and a block's dynamic shared
+    memory in bytes."""
+    group: int
+    span: int
+    vec: int
+    smem: int
+
+
+@lru_cache(maxsize=None)
+def fetch_select_plan(n: int, frustums: int) -> FetchPlan:
+    """K15's launch shape for `frustums` masks of `n` points: as many
+    blocks a frustum as fill the card, at most 8, none with fewer than
+    512 words unless the span's shared memory needs more blocks."""
+    if n < 1 or frustums < 1:
+        raise ValueError(f"fetch_select_plan: N={n}, {frustums} frustums")
+    nwords = -(-n // 32)
+    need = -(-nwords // _FETCH_MAX_SPAN)
+    if need > FETCH_MAX_GROUP:
+        raise ValueError(f"fetch_select: N={n} exceeds {FETCH_MAX_POINTS} "
+                         f"points per frame")
+    fill = min(FETCH_MAX_GROUP, _FETCH_FILL // frustums,
+               nwords // _FETCH_MIN_SPAN)
+    group = max(1, need, fill)
+    span = -(-nwords // group)
+    group = -(-nwords // span)   # every block owns at least one word
+    vec = 16 if n % 16 == 0 else 4 if n % 4 == 0 else 1
+    return FetchPlan(group, span, vec, span * 8)
 
 
 class FrustumBatch(NamedTuple):
@@ -154,7 +194,8 @@ def fetch_select_plain(pts: torch.Tensor, inside: torch.Tensor,
 def fetch_select_cuda(pts: torch.Tensor, inside: torch.Tensor,
                       u: torch.Tensor, npoints: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K15 on the current stream; contiguous CUDA tensors."""
+    """Launch K15 on the current stream in the shape `fetch_select_plan`
+    gives; contiguous CUDA tensors."""
     _check_fetch_args(pts, inside, u, npoints)
     if not (pts.device.type == "cuda" and inside.device == pts.device
             and u.device == pts.device):
@@ -166,9 +207,10 @@ def fetch_select_cuda(pts: torch.Tensor, inside: torch.Tensor,
         raise ValueError("fetch_select_cuda needs contiguous tensors")
     f, n, c = pts.shape
     mb = inside.shape[1]
-    if n > FETCH_MAX_POINTS:
-        raise ValueError(f"fetch_select_cuda: N={n} exceeds "
-                         f"{FETCH_MAX_POINTS} points per frame")
+    plan = fetch_select_plan(n, f * mb)
+    # 16- and 4-byte loads need the mask on such a boundary (a contiguous
+    # view may start anywhere)
+    vec = plan.vec if inside.data_ptr() % plan.vec == 0 else 1
     lib = _build.library()
     dev = pts.device
     perm = _slot_order_on(npoints, dev)
@@ -179,7 +221,8 @@ def fetch_select_cuda(pts: torch.Tensor, inside: torch.Tensor,
         code = lib.t3d_fetch_select(
             pts.data_ptr(), inside.data_ptr(), u.data_ptr(),
             perm.data_ptr(), sampled.data_ptr(), idx.data_ptr(),
-            count.data_ptr(), f, mb, n, c, npoints, _build.stream_ptr(dev))
+            count.data_ptr(), f, mb, n, c, npoints, plan.group, plan.span,
+            vec, _build.stream_ptr(dev))
     _build.check(code, "t3d_fetch_select")
     _build.LAUNCHES["fetch_select"] += 1
     return sampled, idx, count

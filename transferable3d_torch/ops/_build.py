@@ -9,8 +9,8 @@ library lands in `transferable3d_torch/_build/` (git-ignored) under a
 name that carries a hash of the sources, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. With `T3D_KERNEL_CLOCKS=1` in the environment
-K2, K4's gather, K5, K6/K7 and K8/K9 are compiled with their phase clocks,
-as a library of its own name. Nothing here runs at import time: the CPU tests import every
+K2, K4's gather, K5, K6/K7, K8/K9 and K15 are compiled with their phase
+clocks, as a library of its own name. Nothing here runs at import time: the CPU tests import every
 module on machines without `nvcc`.
 
 Each C entry point launches on the stream it is given, does not
@@ -39,8 +39,9 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               *ARCH]
 # Set to "1" before the first build of a process, this compiles K2, K4's
-# gather, K5, K6/K7 and K8/K9 with their phase clocks
-# (scripts/torch_time_sa_fwd.py and scripts/torch_time_sa_bwd.py, --phases).
+# gather, K5, K6/K7, K8/K9 and K15 with their phase clocks
+# (scripts/torch_time_sa_fwd.py, torch_time_sa_bwd.py and
+# torch_time_fetch.py, --phases).
 CLOCKS_ENV = "T3D_KERNEL_CLOCKS"
 
 LAUNCHES = {"fps": 0, "sa_infer": 0, "extract_fwd": 0, "extract_bwd": 0,
@@ -81,8 +82,8 @@ _SIGNATURES = {
     # tile, stages, W in shared memory, grid, stream
     "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     # pts, inside (bytes), u, perm, sampled, idx, count, F, MB, N, C,
-    # npoints, stream
-    "t3d_fetch_select": [_P] * 7 + [_I] * 5 + [_P],
+    # npoints, blocks a frustum, words a block, mask bytes a load, stream
+    "t3d_fetch_select": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
