@@ -148,6 +148,29 @@ model and the batch are built without `device` and must lie on the card):
      on the captured arguments, as in phase 17; then K15's time with its
      bound and the twin's, the step's time, and `scene_to_train_batch`'s
      time and share of the step.
+The driver and the evaluation (v2 bf16 at the full widths of the preset
+`config2_fpointnet_v1_sunrgbd`: N=1024, C=6, B=32; 512 train and 128 val
+synthetic frustums; through the functions a user runs, without `device`):
+ 22. `train_sup.train` with the records resident on the card, 48 steps (3
+     epochs, an eval pass and a checkpoint after each) with the counters
+     zeroed just before it: K1 4 times a step, each of K5-K9 8 times a
+     train step and K2 8 times an eval step (a scale that `fused_route`
+     reroutes is printed and must take K3/K4 instead); every logged loss
+     and metric finite, the val metrics logged each epoch, the newest
+     checkpoint at step 48; a second `train` resumes at 48 and ends at
+     56, then 8 steps on the host provider (`prefetch`), each at the same
+     launch gates; the checkpoint round trip: the state at step 56 saved
+     and restored into a fresh template, one step on one batch, its
+     loss, gradients and parameters against steps from in-memory copies
+     of the unsaved state, within the copies' own gap (bit-identical
+     where they are);
+ 23. `test.evaluate` on that checkpoint with the counters zeroed: K1 16
+     and K2 32 launches (4 predict calls) and no other kernel, 128 finite
+     detections, `detections.txt` read back through `eval_det` giving the
+     same APs, each in [0, 1]; then the driver's train frustums/s from
+     its log, the checkpoint's save and restore times and `evaluate`'s
+     wall time beside the card's name and power limit, and the whole
+     run's time.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks. Then a JSON line with the
@@ -160,6 +183,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -2429,10 +2453,266 @@ def e2e(args, dev, card: str, ctx):
                    main_bound)]
 
 
+# Phases 22-23: the driver and the evaluation at config 2's widths on v2
+# bf16 (the README's v2 showcase), through the functions a user runs.
+DRIVER_STEPS, DRIVER_RESUME, DRIVER_HOST = 48, 56, 8
+
+
+def _clone_state(state, tx, dev):
+    """An in-memory copy of a train state (no file): the model, Adam's
+    state, the accumulation counters and the dropout generator."""
+    from transferable3d_torch.train import train_loop
+
+    model = copy.deepcopy(state.model)
+    opt = tx(model.parameters())
+    opt.adam.load_state_dict(copy.deepcopy(state.optimizer.adam.state_dict()))
+    opt.count, opt.mini_step = state.optimizer.count, state.optimizer.mini_step
+    opt.acc = (None if state.optimizer.acc is None
+               else [a.clone() for a in state.optimizer.acc])
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.generator.get_state())
+    return train_loop.TrainState(state.step, model, opt, gen)
+
+
+def _after_step(state, metrics):
+    """Loss, gradients and updated parameters (with the BN statistics)
+    after one step, for bitwise comparison."""
+    return {"loss": [metrics["total_loss"].float().reshape(1)],
+            "grads": [p.grad.detach().clone() for p in
+                      state.model.parameters() if p.grad is not None],
+            "params": [v.detach().clone() for v in
+                       state.model.state_dict().values()]}
+
+
+def _gaps(a, b):
+    """Per quantity, the largest absolute difference (0.0: bit-identical;
+    NaN positions must match)."""
+    out = {}
+    for k in a:
+        same = all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+        out[k] = 0.0 if same else max(
+            float((x.float() - y.float()).abs().max())
+            for x, y in zip(a[k], b[k]))
+    return out
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
+def _driver_launches(launches, steps, evals, what):
+    """The kernels of `steps` fused v2 train steps and `evals` eval steps:
+    K1 4 a step, K5-K9 8 a train step, K2 8 an eval step; a scale that
+    `fused_route` sends to the unfused branch trains through K3/K4 and is
+    printed, never silent."""
+    rerouted = launches["fused_sa_rerouted"]
+    per_step = launches["extract_fwd"] // max(steps, 1)
+    if rerouted or launches["extract_fwd"]:
+        print(f"{what}: fused_sa_rerouted {rerouted}, K3/K4 "
+              f"{launches['extract_fwd']}/{launches['extract_bwd']} "
+              f"({per_step} scales a step)", flush=True)
+        _check(rerouted > 0 and launches["extract_fwd"] == per_step * steps,
+               f"{what}: K3/K4 launched without a counted reroute, or not "
+               f"a whole number of scales a step: {launches}")
+    want = {"fps": 4 * (steps + evals), "sa_infer": 8 * evals}
+    want.update({k: (8 - per_step) * steps for k, _, _ in FUSED_KERNELS})
+    if per_step:
+        want.update({"extract_fwd": per_step * steps,
+                     "extract_bwd": per_step * steps,
+                     "fused_sa_rerouted": rerouted})
+    _expect_launches(launches, want)
+
+
+def driver(args, dev, card: str):
+    """Phases 22-23: `train_sup.train` and `test.evaluate` on the card."""
+    with fused_sa_env(None):
+        _driver(args, dev, card)
+
+
+def _driver(args, dev, card: str):
+    import re
+    import tempfile
+
+    from transferable3d_torch.data import device_dataset
+    from transferable3d_torch.eval import ap as ap_lib
+    from transferable3d_torch.ops import _build
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import schedules, train_loop, train_sup
+    from transferable3d_torch.train import test as test_lib
+    from transferable3d_torch.utils.checkpoint import CheckpointManager
+
+    tmp = tempfile.TemporaryDirectory(prefix="t3d_driver_")
+    cfg = dataclasses.replace(
+        config_lib.PRESETS["config2_fpointnet_v1_sunrgbd"],
+        model="frustum_pointnets_v2", compute_dtype="bfloat16",
+        synthetic_train=512, synthetic_val=128, device_data=True,
+        max_steps=DRIVER_STEPS, eval_every_epochs=1, ckpt_every_epochs=1,
+        log_dir=os.path.join(tmp.name, "log"), seed=args.seed)
+    _check((cfg.num_point, cfg.num_channels, cfg.batch_size)
+           == (1024, 6, 32), f"config 2's widths changed: {cfg}")
+    epoch_steps = cfg.synthetic_train // cfg.batch_size
+    val_batches = cfg.synthetic_val // cfg.batch_size
+
+    def run(c, steps, evals, what):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_sup.train(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        print(f"{what}: {wall:.2f} s, launches {launches}", flush=True)
+        _driver_launches(launches, steps, evals, what)
+        _check(out and all(math.isfinite(v) for v in out.values()),
+               f"{what}: val metrics not finite: {out}")
+        return wall
+
+    # 22. train 48 steps (3 epochs of 16, an eval pass of 4 batches and a
+    # checkpoint after each), resume to 56, then the host provider path.
+    t_run = run(cfg, DRIVER_STEPS, 3 * val_batches, "phase 22 train")
+    log = os.path.join(cfg.log_dir, "log_train.txt")
+    rates = [float(r) for r in re.findall(r"\(([0-9.]+) frustums/s\)",
+                                          open(log).read())]
+    train_rows = _csv_rows(os.path.join(cfg.log_dir, "metrics_train.csv"))
+    val_rows = _csv_rows(os.path.join(cfg.log_dir, "metrics_val.csv"))
+    ckpt = CheckpointManager(os.path.join(cfg.log_dir, "ckpt"))
+    steps_logged = [int(r["step"]) for r in val_rows]
+    print(f"phase 22 train: latest checkpoint {ckpt.latest_step()}, "
+          f"checkpoints {ckpt.steps()}; val logged at steps {steps_logged}; "
+          f"last train row "
+          + " ".join(f"{k} {v:.5g}" for k, v in train_rows[-1].items())
+          + "; last val row "
+          + " ".join(f"{k} {v:.5g}" for k, v in val_rows[-1].items()),
+          flush=True)
+    _check(all(math.isfinite(v) for r in train_rows + val_rows
+               for v in r.values()), "phase 22: a logged metric is not finite")
+    _check(steps_logged == [epoch_steps, 2 * epoch_steps, DRIVER_STEPS],
+           f"phase 22: val metrics not logged each epoch: {steps_logged}")
+    _check(ckpt.latest_step() == DRIVER_STEPS,
+           f"phase 22: latest checkpoint {ckpt.latest_step()}")
+
+    resumed = dataclasses.replace(cfg, max_steps=DRIVER_RESUME)
+    run(resumed, DRIVER_RESUME - DRIVER_STEPS, val_batches,
+        "phase 22 resume")
+    text = open(log).read()
+    _check(f"resumed from step {DRIVER_STEPS}" in text
+           and ckpt.latest_step() == DRIVER_RESUME,
+           f"phase 22: no resume from {DRIVER_STEPS} to {DRIVER_RESUME} "
+           f"(latest {ckpt.latest_step()})")
+    host = dataclasses.replace(cfg, device_data=False, max_steps=DRIVER_HOST,
+                               log_dir=os.path.join(tmp.name, "host"))
+    run(host, DRIVER_HOST, val_batches, "phase 22 host provider")
+    host_rows = _csv_rows(os.path.join(host.log_dir, "metrics_train.csv"))
+    _check(all(math.isfinite(v) for r in host_rows for v in r.values())
+           and host_rows[-1]["step"] == DRIVER_HOST,
+           f"phase 22: host provider path: {host_rows}")
+
+    # The checkpoint round trip: phase 22's state saved and restored into
+    # a fresh template, one step on one batch, against steps from
+    # in-memory copies of the state that never saved.
+    train_ds, _ = train_sup.build_datasets(resumed)
+    lr = schedules.exponential_staircase_lr(
+        cfg.learning_rate, cfg.lr_decay_rate, cfg.lr_decay_samples,
+        cfg.batch_size, cfg.min_lr)
+    bn = schedules.bn_momentum_schedule(
+        cfg.bn_init_decay, cfg.bn_decay_rate, cfg.bn_decay_samples,
+        cfg.batch_size, cfg.bn_decay_clip)
+    tx = train_loop.make_optimizer(lr)
+    step = train_loop.make_train_step(cfg.bin_config(), lr, bn)
+
+    def template():
+        return train_loop.create_train_state(
+            train_sup.build_model(resumed, cfg.num_channels, dev), tx,
+            seed=args.seed + 1)
+
+    data = device_dataset.build_device_dataset(
+        train_ds.records, cfg.bin_config(), cfg.max_points_device)
+    batch = next(device_dataset.DeviceEpochIterator(
+        data, cfg.bin_config(), cfg.batch_size, cfg.num_point,
+        seed=args.seed).epoch())
+    state = template()
+    ckpt.restore_latest(state)
+    witnesses = []
+    for _ in range(3):
+        w = _clone_state(state, tx, dev)
+        witnesses.append(_after_step(*step(w, batch)))
+    trip = CheckpointManager(os.path.join(tmp.name, "trip"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trip.save(state.step, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = template()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trip.restore_latest(fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    _check(fresh.step == state.step == DRIVER_RESUME,
+           f"round trip restored step {fresh.step}")
+    restored = _after_step(*step(fresh, batch))
+    own = [_gaps(witnesses[i], witnesses[j])
+           for i, j in ((0, 1), (0, 2), (1, 2))]
+    limit = {k: max(g[k] for g in own) for k in own[0]}
+    got = _gaps(restored, witnesses[0])
+    print(f"phase 22 checkpoint round trip at step {DRIVER_RESUME}: "
+          f"restored vs unsaved {got}; unsaved vs unsaved (the limit) "
+          f"{limit}; save {save_ms:.1f} ms, restore {restore_ms:.1f} ms "
+          f"{card}", flush=True)
+    _check(all(got[k] <= limit[k] for k in got),
+           f"phase 22: the restored step differs from the unsaved steps by "
+           f"more than they differ from each other: {got} > {limit}")
+
+    # 23. evaluate on phase 22's checkpoint: 128 frustums in 4 predict
+    # calls, the files, and the AP read back from detections.txt.
+    result_dir = os.path.join(tmp.name, "result")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    aps = test_lib.evaluate(resumed, result_dir)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 23 evaluate: {eval_s:.2f} s, launches {launches}",
+          flush=True)
+    _expect_launches(launches, {"fps": 4 * val_batches,
+                                "sa_infer": 8 * val_batches})
+    dets = test_lib.read_sunrgbd_results(
+        os.path.join(result_dir, "detections.txt"))
+    _, val_ds = train_sup.build_datasets(resumed)
+    again = ap_lib.eval_det(test_lib.detections_to_eval_boxes(dets),
+                            test_lib.groundtruth_boxes(val_ds,
+                                                       cfg.bin_config()))
+    finite = all(np.isfinite(d.center).all() and np.isfinite(d.size).all()
+                 and math.isfinite(d.score) and math.isfinite(d.heading)
+                 for d in dets)
+    print("phase 23 AP@0.25 " + " ".join(f"{k} {v:.4f}" for k, v in
+                                          sorted(aps.items()))
+          + f"; {len(dets)} detections, finite {finite}; read back "
+          f"{'equal' if again == aps else again}", flush=True)
+    _check(len(dets) == cfg.synthetic_val and finite,
+           f"phase 23: {len(dets)} detections, finite {finite}")
+    _check(again == aps, "phase 23: detections.txt read back gives other "
+           "APs than evaluate returned")
+    _check(all(0.0 <= v <= 1.0 for v in aps.values()),
+           f"phase 23: an AP outside [0, 1]: {aps}")
+    print(f"times driver (v2 bf16, B={cfg.batch_size}, N={cfg.num_point}, "
+          f"C={cfg.num_channels}): train frustums/s by epoch from its log "
+          f"{rates}; {DRIVER_STEPS} steps with 3 eval passes and 3 "
+          f"checkpoints {t_run:.2f} s; checkpoint save {save_ms:.1f} ms, "
+          f"restore {restore_ms:.1f} ms; evaluate {eval_s:.2f} s {card}",
+          flush=True)
+    tmp.cleanup()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke run needs an "
               "NVIDIA GPU")
@@ -2471,7 +2751,10 @@ def main() -> None:
     unfused_kernels, ctx = train(args, dev, card)
     kernels += unfused_kernels + train_fused(args, dev, card, ctx)
     kernels += e2e(args, dev, card, ctx)
+    driver(args, dev, card)
 
+    print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,9 +13,22 @@ from functools import partial
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from transferable3d_torch.utils.bridge import load_flax_variables
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for a module's tests. The suite runs
+    several pytest workers at once, and torch's default of a thread a
+    core oversubscribes the cores: small training loops ran 20-40 times
+    slower there than alone, and no faster alone on more threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_numpy_tree(tree):

@@ -1,8 +1,9 @@
 """Heading / size bin parameterization + dataset class constants.
 
 JAX-free copy of `transferable3d_tpu/core/bins.py`: the constants,
-`BinConfig`, the numpy codecs (`angle_to_class_np`, `class_to_angle_np`,
-`size_to_class_np`, `class_to_size_np`, bins.py:162-222) and the torch
+`BinConfig` (without `from_boxes`, which nothing calls), the numpy
+codecs (`angle_to_class_np`, `class_to_angle_np`, `size_to_class_np`,
+`class_to_size_np`, bins.py:162-222) and the torch
 codecs `angle_to_class`, `class_to_angle`, `size_to_class`,
 `class_to_size` (bins.py:183-233). The JAX module imports `jax.numpy` at
 import time, so the port cannot import it; tests/test_torch_layers.py and
@@ -81,6 +82,9 @@ class BinConfig:
 
     def mean_size_array(self) -> np.ndarray:
         return np.asarray(self.mean_sizes, dtype=np.float32)
+
+    def class_index(self, name: str) -> int:
+        return self.classes.index(name)
 
     @staticmethod
     def sunrgbd() -> "BinConfig":

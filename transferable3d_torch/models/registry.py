@@ -28,3 +28,7 @@ def get_model(name: str, cfg: bins_lib.BinConfig, **kwargs):
         raise KeyError(
             f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name](cfg=cfg, **kwargs)
+
+
+def available() -> list:
+    return sorted(_REGISTRY)

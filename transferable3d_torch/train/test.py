@@ -1,20 +1,43 @@
-"""Batched inference -> detections in the original camera frame.
+"""Inference + detection-file writer + evaluation
+(`python -m transferable3d_torch.train.test`, `t3d-torch-test`).
 
-Port of `Detection`, `rotate_back` and `run_inference`
-(`transferable3d_tpu/train/test.py:39-130`) without the BoxPC
-refinement (`--boxpc_refine`, ROADMAP queue A, item 13). The writers,
-the AP evaluation and the CLI are not ported yet (item 8).
+Port of `transferable3d_tpu/train/test.py` (`t3d-test`): restore the
+newest checkpoint, batched forward, decode bins to boxes, rotate back
+out of the frustum frame, write KITTI-format label files / SUN-RGBD
+result lists with the same format strings (the same bytes), then run the
+AP evaluator (and, for KITTI with `T3D_KITTI_GT_DIR` set, the native
+offline evaluator). The BoxPC refinement (`--boxpc_refine`,
+`make_boxpc_refine_step`) comes with the transfer loop (ROADMAP A13):
+asking for it raises NotImplementedError.
+
+Output formats:
+  * KITTI: one `<frame_id>.txt` per frame in `result_dir/data/`, lines
+    "type trunc occl alpha x1 y1 x2 y2 h w l x y z ry score" with the
+    KITTI convention (3D y at the box bottom, sizes h w l).
+  * SUN-RGBD: `result_dir/detections.txt`, lines
+    "frame_id classname score cx cy cz l w h heading" in the upright
+    camera frame.
 """
 
 from __future__ import annotations
 
-from typing import List
+import argparse
+import os
+from typing import Dict, List
 
 import numpy as np
 
+from transferable3d_torch import resolve_device
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core.geometry import rotate_points_y_np
-from transferable3d_torch.train import train_loop
+from transferable3d_torch.eval import ap as ap_lib
+from transferable3d_torch.train import config as config_lib
+from transferable3d_torch.train import schedules, train_loop, train_sup
+from transferable3d_torch.utils.checkpoint import CheckpointManager
+from transferable3d_torch.utils.logging import Logger
+
+_BOXPC = ("BoxPC refinement (--boxpc_refine) is not ported yet "
+          "(ROADMAP A13)")
 
 
 class Detection:
@@ -76,3 +99,149 @@ def run_inference(model, ds, cfg: bins_lib.BinConfig,
                 center=center, size=out["size"][j], heading=heading,
                 score=conf, box2d=rec.box2d))
     return detections
+
+
+# ---------------------------------------------------------------------------
+# Writers
+# ---------------------------------------------------------------------------
+
+def write_sunrgbd_results(detections: List[Detection],
+                          result_dir: str) -> str:
+    os.makedirs(result_dir, exist_ok=True)
+    path = os.path.join(result_dir, "detections.txt")
+    with open(path, "w") as f:
+        for d in detections:
+            f.write(
+                f"{d.frame_id} {d.classname} {d.score:.6f} "
+                f"{d.center[0]:.4f} {d.center[1]:.4f} {d.center[2]:.4f} "
+                f"{d.size[0]:.4f} {d.size[1]:.4f} {d.size[2]:.4f} "
+                f"{d.heading:.4f}\n")
+    return path
+
+
+def read_sunrgbd_results(path: str) -> List[Detection]:
+    dets = []
+    with open(path) as f:
+        for line in f:
+            p = line.split()
+            dets.append(Detection(
+                frame_id=p[0], classname=p[1], score=float(p[2]),
+                center=[float(x) for x in p[3:6]],
+                size=[float(x) for x in p[6:9]], heading=float(p[9])))
+    return dets
+
+
+def write_kitti_results(detections: List[Detection],
+                        result_dir: str) -> str:
+    """KITTI label files: one txt per frame under result_dir/data/."""
+    data_dir = os.path.join(result_dir, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    by_frame: Dict[str, List[Detection]] = {}
+    for d in detections:
+        by_frame.setdefault(d.frame_id, []).append(d)
+    for frame_id, dets in by_frame.items():
+        with open(os.path.join(data_dir, f"{frame_id}.txt"), "w") as f:
+            for d in dets:
+                l, w, h = d.size
+                # KITTI: y is the box *bottom* (Y down => bottom = +h/2).
+                x, y, z = d.center[0], d.center[1] + h / 2, d.center[2]
+                ry = d.heading
+                alpha = ry - np.arctan2(x, z)
+                b = d.box2d
+                f.write(
+                    f"{d.classname} -1 -1 {alpha:.4f} "
+                    f"{b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f} "
+                    f"{h:.4f} {w:.4f} {l:.4f} "
+                    f"{x:.4f} {y:.4f} {z:.4f} {ry:.4f} {d.score:.6f}\n")
+    return data_dir
+
+
+def detections_to_eval_boxes(dets: List[Detection]) -> List:
+    return [ap_lib.BoxDetection.from_params(
+        d.frame_id, d.classname, d.center, d.size, d.heading, d.score)
+        for d in dets]
+
+
+def groundtruth_boxes(ds, cfg: bins_lib.BinConfig) -> List:
+    """GT eval boxes in the original frame (records store un-rotated GT)."""
+    gts = []
+    for rec in ds.records:
+        if rec.center is None:
+            continue
+        gts.append(ap_lib.BoxDetection.from_params(
+            rec.frame_id, cfg.classes[rec.class_idx], rec.center,
+            rec.size, float(rec.heading), 1.0))
+    return gts
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def evaluate(cfg: config_lib.TrainConfig, result_dir: str,
+             iou_thresh: float = 0.25, boxpc_dir: str = "",
+             boxpc_steps: int = 1, device=None) -> Dict[str, float]:
+    """Restore the newest checkpoint, run inference on val, write the
+    files and return the APs (per class and "mAP"). On the card unless
+    `device` says otherwise."""
+    if boxpc_dir:
+        raise NotImplementedError(_BOXPC)
+    device = resolve_device(device)
+    train_sup.f32_numerics()
+    logger = Logger(result_dir, filename="log_test.txt")
+    bins_cfg = cfg.bin_config()
+    _, val_ds = train_sup.build_datasets(cfg)
+
+    lr_sched = schedules.exponential_staircase_lr(batch_size=cfg.batch_size)
+    tx = train_loop.make_optimizer(lr_sched)
+    sample = val_ds.get_batch(list(range(min(cfg.batch_size, len(val_ds)))))
+    model = train_sup.build_model(cfg, sample["points"].shape[-1], device)
+    template = train_loop.create_train_state(model, tx)
+    ckpt = CheckpointManager(
+        cfg.restore_path or f"{cfg.log_dir}/ckpt")
+    state = ckpt.restore_latest(template)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt.directory}")
+    logger.log_string(f"restored step {state.step}")
+
+    dets = run_inference(state.model, val_ds, bins_cfg, cfg.batch_size)
+    if cfg.dataset == "kitti":
+        write_kitti_results(dets, result_dir)
+        gt_dir = os.environ.get("T3D_KITTI_GT_DIR", "")
+        if gt_dir:
+            # Official-protocol offline eval via the native binary.
+            from transferable3d_torch.eval import kitti_offline
+            offline = kitti_offline.evaluate_offline(gt_dir, result_dir)
+            for (c, m, d), v in sorted(offline.items()):
+                logger.log_string(f"kitti_eval {c} {m} {d}: {v:.2f}")
+    write_sunrgbd_results(dets, result_dir)
+
+    aps = ap_lib.eval_det(detections_to_eval_boxes(dets),
+                          groundtruth_boxes(val_ds, bins_cfg),
+                          iou_thresh=iou_thresh)
+    for k, v in sorted(aps.items()):
+        logger.log_string(f"AP@{iou_thresh:.2f} {k}: {v:.4f}")
+    logger.close()
+    ckpt.close()
+    return aps
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    config_lib.add_cli_args(parser)
+    parser.add_argument("--result_dir", default="result")
+    parser.add_argument("--iou_thresh", type=float, default=0.25)
+    parser.add_argument("--boxpc_refine", default="",
+                        help="BoxPC ckpt dir; refine decoded boxes with "
+                             "its deltas before writing detections "
+                             "(not ported yet: ROADMAP A13)")
+    parser.add_argument("--boxpc_refine_steps", type=int, default=1)
+    args = parser.parse_args()
+    if args.boxpc_refine:
+        raise NotImplementedError(_BOXPC)
+    cfg = config_lib.config_from_args(args)
+    evaluate(cfg, args.result_dir, args.iou_thresh)
+
+
+if __name__ == "__main__":
+    main()
