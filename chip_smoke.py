@@ -169,8 +169,39 @@ synthetic frustums; through the functions a user runs, without `device`):
      detections, `detections.txt` read back through `eval_det` giving the
      same APs, each in [0, 1]; then the driver's train frustums/s from
      its log, the checkpoint's save and restore times and `evaluate`'s
-     wall time beside the card's name and power limit, and the whole
-     run's time.
+     wall time beside the card's name and power limit.
+The transfer loop (the preset `config4_transfer` at its widths, N=1024,
+C=6, B=32, with a v2 bf16 detector; 640 train and 160 val synthetic
+frustums, strong classes bed, table, sofa, chair and the other six weak;
+through the functions a user runs, without `device`):
+ 24. phase A: one `make_boxpc_train_step` on the card and on the CPU
+     from copies of one BoxPC, both drawing from CPU generators of one
+     seed (the same perturbations, aug and dropout masks): the float32
+     loss within 2%, the gradient cosine >= 0.99, no kernel launched;
+     the step's time at B=32; then 500 steps at B=64 on one batch, and
+     `make_boxpc_refine_step` must raise the mean 3D IoU of freshly
+     perturbed boxes by more than 0.02;
+ 25. phase B: `train_semisup.train` (2 epochs of phase A, then 32 steps
+     with the strong and weak splits resident on the card, an eval pass
+     on the weak val split and a checkpoint an epoch) with the counters
+     zeroed first: every step launches K1 8 times, K5-K7 16 (two passes
+     of 8 scales) and K8/K9 10 (the strong pass's 8 scales and the weak
+     pass's box net: the weak losses do not reach its seg net), every
+     eval step K1 4 and K2 8, nothing else anywhere; every logged loss
+     finite and `weak_trust_frac` in [0, 1]; BoxPC bit-identical before
+     and after phase B and equal to phase A's checkpoint, holding no
+     gradient; the newest checkpoint at step 32; the step's time over
+     epoch 1 and the peak memory; then one v1 float32 semi-supervised
+     step on 8 + 8 frustums, card vs CPU from copies (CPU generators of
+     one seed: the same dropout masks): loss within 2%, cosine >= 0.99;
+ 26. `test.evaluate(boxpc_dir=<log_dir>/boxpc_ckpt)` with the counters
+     zeroed: K1 4 and K2 8 launches a predict call and nothing else, 160
+     finite detections that differ from `evaluate`'s without the
+     refinement, `detections.txt` read back through `eval_det` giving
+     the same APs, each in [0, 1]; then phase A's and phase B's step
+     times, phase B's frustums/s and peak memory and `evaluate`'s wall
+     time beside the card's name and power limit, and the whole run's
+     time.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks. Then a JSON line with the
@@ -2708,6 +2739,344 @@ def _driver(args, dev, card: str):
     tmp.cleanup()
 
 
+# Phases 24-26: the transfer loop at config 4's widths (`config4_transfer`:
+# N=1024, C=6, B=32, SUN RGB-D bins) on a v2 bf16 detector, through the
+# functions a user runs.
+TRANSFER_STEPS, TRANSFER_BOXPC_EPOCHS = 32, 2
+REFINE_STEPS, REFINE_B = 500, 64
+
+
+def _flat_grads(model):
+    return torch.cat([g.reshape(-1).cpu() for g in _grads(model).values()])
+
+
+def _card_vs_cpu(what, step, make_state, model, batches):
+    """One `step` on the card and on the CPU from copies of `model` (a
+    module or a tuple of modules), each state built by `make_state` with
+    a CPU generator of one seed, so both draw the same numbers and the
+    same dropout masks; the float32 loss within 2% and the gradient
+    cosine >= 0.99 (phase 10's f32 limits)."""
+    from transferable3d_torch.ops import _build
+
+    models = model if isinstance(model, tuple) else (model,)
+    twins = tuple(copy.deepcopy(m).cpu() for m in models)
+    out = []
+    for ms in (models, twins):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        _, metrics = step(make_state(*ms), *batches)
+        torch.cuda.synchronize()
+        out.append((metrics, _flat_grads(ms[0]), dict(_build.LAUNCHES)))
+    key = "combined_loss" if "combined_loss" in out[0][0] else "total_loss"
+    card, cpu = (float(o[0][key]) for o in out)
+    rel = abs(card - cpu) / abs(cpu)
+    cos = _cos(out[0][1], out[1][1])
+    print(f"{what} card vs CPU, float32: {key} {card:.6g} vs {cpu:.6g} "
+          f"(rel {rel:.3g}), gradient cosine {cos:.6f}", flush=True)
+    _check(rel <= BF16_LOSS_REL and cos >= 0.99,
+           f"{what}: card and CPU disagree (loss rel {rel}, cosine {cos})")
+    return out[0][2]
+
+
+def transfer(args, dev, card: str):
+    """Phases 24-26: BoxPC (phase A), the semi-supervised driver (phase
+    B) and `evaluate` with the BoxPC refinement, on the card."""
+    with fused_sa_env(None):
+        _transfer(args, dev, card)
+
+
+def _phase_a(args, cfg, strong_ds, card):
+    """24. One BoxPC step card vs CPU (no kernel), its time at B=32, then
+    500 steps at B=64 on one batch and the refinement's IoU gain."""
+    from transferable3d_torch.core import geometry
+    from transferable3d_torch.models.boxpc import (BoxPCFitNet,
+                                                   sample_perturbed_boxes)
+    from transferable3d_torch.train import semisup, train_loop, train_sup
+    from transferable3d_torch.train.test import make_boxpc_refine_step
+
+    bins_cfg = cfg.bin_config()
+    lr, bn = train_sup.build_schedules(cfg)
+    step = semisup.make_boxpc_train_step(bins_cfg, bn,
+                                         aniso_aug=cfg.boxpc_aniso_aug)
+    batch = strong_ds.get_batch(list(range(cfg.batch_size)))
+    model = BoxPCFitNet(bins_cfg,
+                        generator=torch.Generator().manual_seed(args.seed))
+    _check(next(model.parameters()).is_cuda, "BoxPC did not land on the card")
+    launches = _card_vs_cpu(
+        "phase 24 BoxPC step", step,
+        lambda m: semisup.create_boxpc_state(
+            m, train_loop.make_optimizer(lr),
+            generator=torch.Generator().manual_seed(args.seed)),
+        model, (batch,))
+    print(f"phase 24 BoxPC step: launches {launches}", flush=True)
+    _expect_launches(launches, {})
+
+    # The step's time as the driver runs it (the state's generator on the
+    # card), on the card's copy of the batch.
+    state = semisup.create_boxpc_state(
+        model, train_loop.make_optimizer(lr), seed=args.seed)
+    dev_batch = train_loop.batch_to_device(batch, next(
+        model.parameters()).device)
+    a_ms = _time_ms(lambda: step(state, dev_batch), 5, 50)
+
+    big = train_loop.batch_to_device(
+        strong_ds.get_batch(list(range(REFINE_B))), dev_batch["points"].device)
+    model = BoxPCFitNet(bins_cfg,
+                        generator=torch.Generator().manual_seed(args.seed))
+    lr64, bn64 = train_sup.build_schedules(
+        dataclasses.replace(cfg, batch_size=REFINE_B))
+    state = semisup.create_boxpc_state(model, train_loop.make_optimizer(lr64),
+                                       seed=args.seed)
+    step64 = semisup.make_boxpc_train_step(bins_cfg, bn64,
+                                           aniso_aug=cfg.boxpc_aniso_aug)
+    losses = []
+    for _ in range(REFINE_STEPS):
+        state, m = step64(state, big)
+        losses.append(m["total_loss"])
+    losses = [float(x) for x in losses]
+    gt = semisup.gt_boxes_from_batch(big, bins_cfg)
+    pert = sample_perturbed_boxes(
+        torch.Generator(device=gt.center.device).manual_seed(args.seed + 5),
+        gt)
+    c, s, h, fit = make_boxpc_refine_step(model, 1)(big["points"], *pert)
+    before = float(geometry.box3d_iou(*pert, *gt)[0].mean())
+    after = float(geometry.box3d_iou(c, s, h, *gt)[0].mean())
+    finite = all(bool(torch.isfinite(x).all()) for x in (c, s, h, fit))
+    print(f"phase 24 BoxPC {REFINE_STEPS} steps at B={REFINE_B}: loss "
+          f"{losses[0]:.4f} -> mean of last 5 {np.mean(losses[-5:]):.4f}; "
+          f"refinement of perturbed boxes: mean 3D IoU {before:.4f} -> "
+          f"{after:.4f} (gain {after - before:.4f}), finite {finite}",
+          flush=True)
+    _check(all(math.isfinite(x) for x in losses) and finite,
+           "phase 24: a BoxPC loss or a refined box is not finite")
+    _check(after > before + 0.02,
+           f"phase 24: the refinement raised the mean IoU by "
+           f"{after - before:.4f}, not more than 0.02")
+    return a_ms
+
+
+def _counting(make, record, hook=None):
+    """`make` (a step factory) whose steps append their launch counts to
+    `record`; `hook(i, args)` runs before step i, and `hook(i, None)`
+    after it."""
+    from transferable3d_torch.ops import _build
+
+    def make_counting(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(*args):
+            i = len(record)
+            if hook:
+                hook(i, args)
+            before = dict(_build.LAUNCHES)
+            out = fn(*args)
+            record.append({k: v - before[k]
+                           for k, v in _build.LAUNCHES.items()})
+            if hook:
+                hook(i, None)
+            return out
+        return step
+    return make_counting
+
+
+def _transfer(args, dev, card: str):
+    import re
+    import tempfile
+
+    from transferable3d_torch.eval import ap as ap_lib
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.models.boxpc import BoxPCFitNet
+    from transferable3d_torch.ops import _build
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import semisup, train_loop
+    from transferable3d_torch.train import test as test_lib
+    from transferable3d_torch.train import train_semisup, train_sup
+    from transferable3d_torch.utils.checkpoint import CheckpointManager
+
+    tmp = tempfile.TemporaryDirectory(prefix="t3d_transfer_")
+    cfg = train_semisup.SemisupConfig(**dataclasses.asdict(dataclasses.replace(
+        config_lib.PRESETS["config4_transfer"],
+        model="frustum_pointnets_v2", compute_dtype="bfloat16",
+        synthetic_train=640, synthetic_val=160, device_data=True,
+        max_steps=TRANSFER_STEPS, eval_every_epochs=1, ckpt_every_epochs=1,
+        log_dir=os.path.join(tmp.name, "log"), seed=args.seed)),
+        boxpc_epochs=TRANSFER_BOXPC_EPOCHS)
+    _check((cfg.num_point, cfg.num_channels, cfg.batch_size)
+           == (1024, 6, 32), f"config 4's widths changed: {cfg}")
+    b = cfg.batch_size
+    strong_ds, weak_ds, weak_val = train_semisup.build_semisup_datasets(cfg)
+    epoch_steps = len(strong_ds) // b
+    print(f"phase 24 data: strong {len(strong_ds)} ({cfg.strong_classes}), "
+          f"weak {len(weak_ds)} ({cfg.weak_classes}), weak val "
+          f"{len(weak_val)}; {epoch_steps} steps an epoch", flush=True)
+    _check(3 <= epoch_steps <= TRANSFER_STEPS // 2 and len(weak_ds) >= b
+           and len(weak_val) >= b,
+           "phase 24: a split is too small or too large for phases 24-25")
+
+    # 24. phase A
+    a_ms = _phase_a(args, cfg, strong_ds, card)
+
+    # 25. phase B through `train_semisup.train`: per-step launch gates,
+    # BoxPC frozen, finite terms, the checkpoints; then one v1 float32
+    # step card vs CPU.
+    steps, evals, frozen, times = [], [], {}, {}
+    timed = (epoch_steps + 1, 2 * epoch_steps - 1)  # in epoch 1, not its first
+
+    def watch(i, step_args):
+        if step_args is not None and i == 0:
+            bp = step_args[0].boxpc
+            frozen["module"] = bp
+            frozen["before"] = {k: v.clone() for k, v in
+                                bp.state_dict().items()}
+        for key, at, before in (("start", timed[0], True),
+                                ("end", timed[1], False)):
+            if i == at and (step_args is not None) == before:
+                torch.cuda.synchronize()
+                times[key] = time.perf_counter()
+
+    saved = (semisup.make_semisup_train_step, train_loop.make_eval_step)
+    semisup.make_semisup_train_step = _counting(saved[0], steps, watch)
+    train_loop.make_eval_step = _counting(saved[1], evals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_semisup.train(cfg)
+    finally:
+        semisup.make_semisup_train_step, train_loop.make_eval_step = saved
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = dict(_build.LAUNCHES)
+    print(f"phase 25 train_semisup.train: {run_s:.2f} s, {len(steps)} "
+          f"steps, {len(evals)} eval steps, launches {total}", flush=True)
+    # Two detector passes a step: K1 and the forward kernels K5-K7 run for
+    # all 8 SA scales of each. The backward kernels K8/K9 run for the
+    # strong pass's 8 scales and the weak pass's box net (2 scales): the
+    # weak losses do not reach the weak pass's seg net (its mask is an
+    # argmax), so that backward has no cotangent and is never launched.
+    want_step = {"fps": 8, "sa_extract": 16, "sa_fwd_step": 16,
+                 "sa_fwd_last": 16, "sa_bwd_step": 10, "sa_bwd_step0": 10}
+    want_eval = {"fps": 4, "sa_infer": 8}
+    for what, record, want in (("step", steps, want_step),
+                               ("eval step", evals, want_eval)):
+        bad = [(i, r) for i, r in enumerate(record)
+               if r != {k: want.get(k, 0) for k in r}]
+        _check(not bad, f"phase 25: a {what} launched other kernels than "
+               f"{want}: {bad[:2]}")
+    val_batches = len(weak_val) // b
+    n_epochs = -(-TRANSFER_STEPS // epoch_steps)
+    _check(len(steps) == TRANSFER_STEPS
+           and len(evals) == n_epochs * val_batches,
+           f"phase 25: {len(steps)} steps and {len(evals)} eval steps")
+    _expect_launches(total, {
+        k: len(steps) * want_step.get(k, 0) + len(evals) * want_eval.get(k, 0)
+        for k in set(want_step) | set(want_eval)})
+    bp = frozen["module"]
+    changed = [k for k, v in bp.state_dict().items()
+               if not torch.equal(v, frozen["before"][k])]
+    phase_a = CheckpointManager(os.path.join(cfg.log_dir, "boxpc_ckpt"))
+    restored = semisup.create_boxpc_state(
+        BoxPCFitNet(cfg.bin_config()), train_loop.make_optimizer(
+            train_sup.build_schedules(cfg)[0]))
+    phase_a.restore_latest(restored)
+    unlike_a = [k for k, v in restored.model.state_dict().items()
+                if not torch.equal(v, bp.state_dict()[k])]
+    print(f"phase 25 BoxPC: phase A's checkpoint at step {restored.step}; "
+          f"entries changed in phase B {changed}; unlike the checkpoint "
+          f"{unlike_a}; grads {[k for k, p in bp.named_parameters() if p.grad is not None]}",
+          flush=True)
+    _check(not changed and not unlike_a and restored.step == (
+        TRANSFER_BOXPC_EPOCHS * epoch_steps) and all(
+            p.grad is None and not p.requires_grad for p in bp.parameters()),
+        "phase 25: BoxPC is not bit-identical through phase B")
+    rows = _csv_rows(os.path.join(cfg.log_dir, "metrics_train.csv"))
+    terms = [k for k in rows[-1] if k.endswith("_loss")]
+    print("phase 25 last train row " + " ".join(
+        f"{k} {v:.5g}" for k, v in rows[-1].items()), flush=True)
+    _check(all(math.isfinite(r[k]) for r in rows for k in terms)
+           and {"total_loss", "weak_total_loss", "weak_fit_loss",
+                "weak_refine_loss", "weak_reproj_loss",
+                "weak_size_prior_loss", "combined_loss"} <= set(terms),
+           f"phase 25: a logged term is missing or not finite: {terms}")
+    _check(all(0.0 <= r["weak_trust_frac"] <= 1.0 for r in rows),
+           "phase 25: weak_trust_frac outside [0, 1]")
+    ckpt = CheckpointManager(os.path.join(cfg.log_dir, "ckpt"))
+    _check(ckpt.latest_step() == TRANSFER_STEPS,
+           f"phase 25: newest checkpoint {ckpt.latest_step()}")
+    log = open(os.path.join(cfg.log_dir, "log_train.txt")).read()
+    rates = [float(r) for r in re.findall(r"\(([0-9.]+) frustums/s\)", log)]
+    span = timed[1] - timed[0] + 1
+    b_ms = (times["end"] - times["start"]) / span * 1e3
+    print(f"phase 25 checkpoints {ckpt.steps()}, weak val logged at "
+          f"{[int(r['step']) for r in _csv_rows(os.path.join(cfg.log_dir, 'metrics_weak_val.csv'))]}"
+          f"; frustums/s by epoch from the log {rates}; {span} steps of "
+          f"epoch 1 {b_ms:.2f} ms a step", flush=True)
+
+    lr, bn = train_sup.build_schedules(cfg)
+    bins_cfg = cfg.bin_config()
+    det = registry.get_model("frustum_pointnets_v1", bins_cfg, in_channels=6,
+                             generator=torch.Generator().manual_seed(args.seed))
+    boxpc = BoxPCFitNet(bins_cfg,
+                        generator=torch.Generator().manual_seed(args.seed + 1))
+    _card_vs_cpu(
+        f"phase 25 v1 semi-supervised step ({CHECK_B} + {CHECK_B} frustums)",
+        semisup.make_semisup_train_step(bins_cfg, lr, bn),
+        lambda d, p: semisup.SemisupState(train_loop.create_train_state(
+            d, train_loop.make_optimizer(lr),
+            generator=torch.Generator().manual_seed(args.seed)), p),
+        (det, boxpc), (strong_ds.get_batch(list(range(CHECK_B))),
+                       weak_ds.get_batch(list(range(CHECK_B)))))
+
+    # 26. evaluate with the BoxPC refinement, and without it.
+    result_dir = os.path.join(tmp.name, "result")
+    _, val_ds = train_sup.build_datasets(cfg)
+    calls = -(-len(val_ds) // b)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    aps = test_lib.evaluate(cfg, result_dir,
+                            boxpc_dir=os.path.join(cfg.log_dir, "boxpc_ckpt"))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 26 evaluate with BoxPC refinement: {eval_s:.2f} s, "
+          f"{calls} predict calls, launches {launches}", flush=True)
+    _expect_launches(launches, {"fps": 4 * calls, "sa_infer": 8 * calls})
+    plain_dir = os.path.join(tmp.name, "plain")
+    plain_aps = test_lib.evaluate(cfg, plain_dir)
+    dets, plain = (test_lib.read_sunrgbd_results(os.path.join(d,
+                                                              "detections.txt"))
+                   for d in (result_dir, plain_dir))
+    again = ap_lib.eval_det(test_lib.detections_to_eval_boxes(dets),
+                            test_lib.groundtruth_boxes(val_ds, bins_cfg))
+    finite = all(np.isfinite(d.center).all() and np.isfinite(d.size).all()
+                 and math.isfinite(d.score) and math.isfinite(d.heading)
+                 for d in dets)
+    moved = max(float(np.abs(d.center - p.center).max()) for d, p in
+                zip(dets, plain))
+    print("phase 26 AP@0.25 refined " + " ".join(
+        f"{k} {v:.4f}" for k, v in sorted(aps.items()))
+          + f"; unrefined mAP {plain_aps['mAP']:.4f}; {len(dets)} "
+          f"detections, finite {finite}, largest center move {moved:.4f} m;"
+          f" read back {'equal' if again == aps else again}", flush=True)
+    _check(len(dets) == len(plain) == len(val_ds) and finite,
+           f"phase 26: {len(dets)} detections, finite {finite}")
+    _check(moved > 0, "phase 26: the refinement moved no detection")
+    _check(again == aps, "phase 26: detections.txt read back gives other "
+           "APs than evaluate returned")
+    _check(all(0.0 <= v <= 1.0 for v in aps.values()),
+           f"phase 26: an AP outside [0, 1]: {aps}")
+    print(f"times transfer (config 4's widths, v2 bf16 detector, B={b}, "
+          f"N={cfg.num_point}, C={cfg.num_channels}): phase A "
+          f"{a_ms:.3f} ms a BoxPC step at B={b}; phase B {b_ms:.2f} ms a "
+          f"step, {2 * b / b_ms * 1e3:.1f} frustums/s (2 x {b} a step), "
+          f"peak memory {peak:.3f} GiB; train_semisup.train {run_s:.2f} s; "
+          f"evaluate with the refinement {eval_s:.2f} s {card}", flush=True)
+    tmp.cleanup()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2752,6 +3121,7 @@ def main() -> None:
     kernels += unfused_kernels + train_fused(args, dev, card, ctx)
     kernels += e2e(args, dev, card, ctx)
     driver(args, dev, card)
+    transfer(args, dev, card)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

@@ -26,12 +26,14 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
 print(json.dumps([names, _build._lib is None, bad]))
 """
 
-# The driver's and the evaluation's modules, which the walk must reach.
+# The driver's, the evaluation's and the transfer loop's modules, which
+# the walk must reach.
 _DRIVER = ("eval.ap", "eval.kitti_offline", "utils.checkpoint",
            "utils.logging", "utils.prefetch", "train.config",
            "train.train_sup", "train.test", "data.device_dataset",
            "data.pickle_io", "data.kitti", "data.kitti_prep",
-           "data.sunrgbd", "data.sunrgbd_prep", "core.box_np")
+           "data.sunrgbd", "data.sunrgbd_prep", "core.box_np",
+           "models.boxpc", "train.semisup", "train.train_semisup")
 
 
 def test_chip_smoke_imports_no_jax():
@@ -62,3 +64,50 @@ def test_port_imports_no_jax():
     assert {f"transferable3d_torch.{m}" for m in _DRIVER} <= set(names)
     assert not_built, "importing must not build the kernels"
     assert bad == [], bad
+
+
+def test_transfer_loop_builds_on_the_card_unless_told():
+    """BoxPC, its registry entry and the semi-supervised driver resolve
+    their device like every entry point: without `device` they need the
+    card, and on a machine without one they raise rather than run on the
+    CPU."""
+    import dataclasses
+
+    import pytest
+    import torch
+
+    from transferable3d_torch.core import bins
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.models.boxpc import BoxPCFitNet
+    from transferable3d_torch.train import train_semisup
+
+    assert BoxPCFitNet(bins.SUNRGBD, device="cpu").head.out.weight.device \
+        == torch.device("cpu")
+    if torch.cuda.is_available():
+        return  # construction without device lands on the card
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        BoxPCFitNet(bins.SUNRGBD)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        registry.get_model("boxpc_fit", bins.SUNRGBD)
+    cfg = dataclasses.replace(train_semisup.SemisupConfig(), log_dir="")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_semisup.train(cfg)
+
+
+def test_every_jax_entry_point_has_a_port_twin():
+    """`pyproject.toml` names a `t3d-torch-*` script for each `t3d-*`
+    one (`t3d-torch-train-semisup` for `t3d-train-semisup`), each a
+    callable `main` of the port's module of the same path."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    jax_names = {k for k in scripts if not k.startswith("t3d-torch-")}
+    assert "t3d-train-semisup" in jax_names
+    for name in sorted(jax_names):
+        twin = scripts[name.replace("t3d-", "t3d-torch-", 1)]
+        module, func = twin.split(":")
+        assert module == scripts[name].split(":")[0].replace(
+            "transferable3d_tpu", "transferable3d_torch"), (name, twin)
+        assert callable(getattr(importlib.import_module(module), func))

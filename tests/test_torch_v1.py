@@ -186,7 +186,7 @@ def test_registry_names():
                                          device="cpu"),
                       tv1.BoxEstimationOnly)
     with pytest.raises(KeyError, match="frustum_pointnets_v1"):
-        registry.get_model("boxpc_fit", tbins.SUNRGBD, device="cpu")
+        registry.get_model("no_such_model", tbins.SUNRGBD, device="cpu")
 
 
 def test_v1_train_mode_needs_a_generator_and_predicts():

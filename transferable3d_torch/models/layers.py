@@ -124,13 +124,16 @@ class PointMLP(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """FC stack (Dense -> BN -> ReLU per layer) + a float32 projection."""
+    """FC stack (Dense -> BN -> ReLU per layer, then dropout at
+    `dropout_rate` in train mode) + a float32 projection."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 out_features: int, *, dtype=torch.float32, device=None,
+                 out_features: int, *, dropout_rate: float = 0.0,
+                 dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.depth = len(features)
+        self.dropout_rate = dropout_rate
         f_in = in_features
         for i, f in enumerate(features):
             self.add_module(f"fc_{i}", Dense(
@@ -142,11 +145,21 @@ class MLPHead(nn.Module):
         self.out = Dense(f_in, out_features, dtype=torch.float32,
                          device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        """`generator` draws the dropout masks (one a hidden layer, in
+        order) in train mode; it is required there when the rate is not
+        0, as flax requires a dropout rng."""
+        drop = self.training and self.dropout_rate > 0
+        if drop and generator is None:
+            raise ValueError("train-mode dropout draws its mask from an "
+                             "explicit torch.Generator; pass one")
         for i in range(self.depth):
             x = getattr(self, f"fc_{i}")(x)
             x = torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
+            if drop:
+                x = dropout(x, self.dropout_rate, generator)
         return self.out(x)
 
 

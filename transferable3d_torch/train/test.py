@@ -6,9 +6,9 @@ newest checkpoint, batched forward, decode bins to boxes, rotate back
 out of the frustum frame, write KITTI-format label files / SUN-RGBD
 result lists with the same format strings (the same bytes), then run the
 AP evaluator (and, for KITTI with `T3D_KITTI_GT_DIR` set, the native
-offline evaluator). The BoxPC refinement (`--boxpc_refine`,
-`make_boxpc_refine_step`) comes with the transfer loop (ROADMAP A13):
-asking for it raises NotImplementedError.
+offline evaluator). With `--boxpc_refine <dir>` (`evaluate(boxpc_dir=)`)
+the decoded boxes are refined by a BoxPC checkpoint's deltas in the
+frustum frame before the rotate-back (`make_boxpc_refine_step`).
 
 Output formats:
   * KITTI: one `<frame_id>.txt` per frame in `result_dir/data/`, lines
@@ -23,22 +23,21 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from transferable3d_torch import resolve_device
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core.geometry import rotate_points_y_np
 from transferable3d_torch.eval import ap as ap_lib
+from transferable3d_torch.models import boxpc as boxpc_lib
 from transferable3d_torch.train import config as config_lib
-from transferable3d_torch.train import schedules, train_loop, train_sup
+from transferable3d_torch.train import schedules, semisup, train_loop
+from transferable3d_torch.train import train_sup
 from transferable3d_torch.utils.checkpoint import CheckpointManager
 from transferable3d_torch.utils.logging import Logger
-
-_BOXPC = ("BoxPC refinement (--boxpc_refine) is not ported yet "
-          "(ROADMAP A13)")
-
 
 class Detection:
     """One decoded detection in the *original* (un-rotated) camera frame."""
@@ -65,8 +64,34 @@ def rotate_back(center: np.ndarray, heading: float, frustum_angle: float):
     return c, heading - frustum_angle
 
 
+def make_boxpc_refine_step(boxpc_model: torch.nn.Module,
+                           iterations: int = 1):
+    """BoxPC refinement: apply the fit net's deltas to decoded boxes
+    (optionally iterated), in eval mode without autograd. The returned
+    function takes points [B, N, C] and the boxes' center [B, 3], size
+    [B, 3] and heading [B] (tensors on the BoxPC's device) and returns
+    the refined (center, size, heading) and the last fit probability
+    [B]."""
+
+    def fn(points, center, size, heading):
+        boxpc_model.eval()
+        with torch.inference_mode():
+            box = boxpc_lib.BoxParams(center=center, size=size,
+                                      heading=heading)
+            fit = torch.ones_like(heading)
+            for _ in range(iterations):
+                out = boxpc_model(points, box)
+                box = boxpc_lib.apply_deltas(box, out)
+                fit = torch.sigmoid(out["fit_logit"])
+            return box.center, box.size, box.heading, fit
+
+    return fn
+
+
 def run_inference(model, ds, cfg: bins_lib.BinConfig,
-                  batch_size: int = 32) -> List[Detection]:
+                  batch_size: int = 32,
+                  boxpc_model: Optional[torch.nn.Module] = None,
+                  boxpc_steps: int = 1) -> List[Detection]:
     """Batched prediction over a dataset -> detections in original frame.
 
     `ds` is any object with `len(ds)`, `ds.records` (each with
@@ -74,16 +99,28 @@ def run_inference(model, ds, cfg: bins_lib.BinConfig,
     `ds.get_batch(indices)` returning the batch dict of numpy arrays.
     The last batch is padded by repeating its last index. The score is
     the 2D score times the seg confidence times the heading and size
-    class probabilities, each floored at 1e-6.
+    class probabilities, each floored at 1e-6. With `boxpc_model`, the
+    decoded boxes are refined by its deltas (`boxpc_steps` times) in the
+    frustum frame, before the rotate-back.
     """
     predict = train_loop.make_predict_step(model, cfg)
+    refine = (make_boxpc_refine_step(boxpc_model, boxpc_steps)
+              if boxpc_model is not None else None)
     detections: List[Detection] = []
     n = len(ds)
     for start in range(0, n, batch_size):
         idxs = list(range(start, min(start + batch_size, n)))
         pad = batch_size - len(idxs)
         batch = ds.get_batch(idxs + [idxs[-1]] * pad)
-        out = {k: v.cpu().numpy() for k, v in predict(batch).items()}
+        out = predict(batch)
+        if refine is not None:
+            points = torch.as_tensor(batch["points"], dtype=torch.float32,
+                                     device=out["center"].device)
+            center, size, heading, fit = refine(
+                points, out["center"], out["size"], out["heading"])
+            out = dict(out, center=center, size=size, heading=heading,
+                       boxpc_fit=fit)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
         for j, i in enumerate(idxs):
             rec = ds.records[i]
             center, heading = rotate_back(
@@ -183,9 +220,12 @@ def evaluate(cfg: config_lib.TrainConfig, result_dir: str,
              boxpc_steps: int = 1, device=None) -> Dict[str, float]:
     """Restore the newest checkpoint, run inference on val, write the
     files and return the APs (per class and "mAP"). On the card unless
-    `device` says otherwise."""
-    if boxpc_dir:
-        raise NotImplementedError(_BOXPC)
+    `device` says otherwise.
+
+    `boxpc_dir` (--boxpc_refine): directory of a BoxPC checkpoint (phase
+    A's output, `<log_dir>/boxpc_ckpt`); decoded boxes are refined by its
+    deltas, iterated `boxpc_steps` times.
+    """
     device = resolve_device(device)
     train_sup.f32_numerics()
     logger = Logger(result_dir, filename="log_test.txt")
@@ -204,7 +244,21 @@ def evaluate(cfg: config_lib.TrainConfig, result_dir: str,
         raise FileNotFoundError(f"no checkpoint found in {ckpt.directory}")
     logger.log_string(f"restored step {state.step}")
 
-    dets = run_inference(state.model, val_ds, bins_cfg, cfg.batch_size)
+    boxpc_model = None
+    if boxpc_dir:
+        boxpc_model = boxpc_lib.BoxPCFitNet(bins_cfg, device=device)
+        bp_ckpt = CheckpointManager(boxpc_dir)
+        bp_state = bp_ckpt.restore_latest(
+            semisup.create_boxpc_state(boxpc_model, tx))
+        bp_ckpt.close()
+        if bp_state is None:
+            raise FileNotFoundError(f"no BoxPC checkpoint in {boxpc_dir}")
+        logger.log_string(
+            f"boxpc refinement on (step {bp_state.step}, "
+            f"{boxpc_steps} iteration(s))")
+
+    dets = run_inference(state.model, val_ds, bins_cfg, cfg.batch_size,
+                         boxpc_model=boxpc_model, boxpc_steps=boxpc_steps)
     if cfg.dataset == "kitti":
         write_kitti_results(dets, result_dir)
         gt_dir = os.environ.get("T3D_KITTI_GT_DIR", "")
@@ -233,14 +287,13 @@ def main() -> None:
     parser.add_argument("--iou_thresh", type=float, default=0.25)
     parser.add_argument("--boxpc_refine", default="",
                         help="BoxPC ckpt dir; refine decoded boxes with "
-                             "its deltas before writing detections "
-                             "(not ported yet: ROADMAP A13)")
+                             "its deltas before writing detections")
     parser.add_argument("--boxpc_refine_steps", type=int, default=1)
     args = parser.parse_args()
-    if args.boxpc_refine:
-        raise NotImplementedError(_BOXPC)
     cfg = config_lib.config_from_args(args)
-    evaluate(cfg, args.result_dir, args.iou_thresh)
+    evaluate(cfg, args.result_dir, args.iou_thresh,
+             boxpc_dir=args.boxpc_refine,
+             boxpc_steps=args.boxpc_refine_steps)
 
 
 if __name__ == "__main__":

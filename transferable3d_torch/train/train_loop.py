@@ -145,8 +145,13 @@ def create_train_state(model: torch.nn.Module,
                       generator=generator)
 
 
+# The weak batch's 2D-box entries (frustum_angle ... has_calib) travel
+# only when the batch holds them: host-provider batches do, device-drawn
+# ones do not, and the semi-supervised step's calib-exact reprojection
+# term is taken only where `calib_p` is present, as in the JAX package.
 _FLOAT_KEYS = ("points", "one_hot", "center", "heading_residual",
-               "size_residual", "valid")
+               "size_residual", "valid", "frustum_angle", "box2d",
+               "calib_p", "has_calib")
 _INT_KEYS = ("seg", "heading_class", "size_class", "class_idx")
 
 

@@ -93,6 +93,17 @@ def build_model(cfg: config_lib.TrainConfig, in_channels: int, device):
         generator=torch.Generator().manual_seed(cfg.seed), **kw)
 
 
+def build_schedules(cfg: config_lib.TrainConfig):
+    """The config's (LR, BN-momentum) staircase schedules."""
+    lr = schedules.exponential_staircase_lr(
+        cfg.learning_rate, cfg.lr_decay_rate, cfg.lr_decay_samples,
+        cfg.batch_size, cfg.min_lr)
+    bn = schedules.bn_momentum_schedule(
+        cfg.bn_init_decay, cfg.bn_decay_rate, cfg.bn_decay_samples,
+        cfg.batch_size, cfg.bn_decay_clip)
+    return lr, bn
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -113,12 +124,7 @@ def train(cfg: config_lib.TrainConfig, device=None) -> dict:
         f"datasets: train={len(train_ds)} val={len(val_ds)} "
         f"classes={bins_cfg.classes}")
 
-    lr_sched = schedules.exponential_staircase_lr(
-        cfg.learning_rate, cfg.lr_decay_rate, cfg.lr_decay_samples,
-        cfg.batch_size, cfg.min_lr)
-    bn_sched = schedules.bn_momentum_schedule(
-        cfg.bn_init_decay, cfg.bn_decay_rate, cfg.bn_decay_samples,
-        cfg.batch_size, cfg.bn_decay_clip)
+    lr_sched, bn_sched = build_schedules(cfg)
     tx = train_loop.make_optimizer(
         lr_sched, grad_accum_steps=cfg.grad_accum_steps)
 
