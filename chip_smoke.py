@@ -88,7 +88,10 @@ Fused training phases (T3D_FUSED_SA unset, from the same initial model):
      plan (K = 16; 128 rows of 128 -> 128, 128 -> 256 and 256 -> 256);
      K5 on the probes of `_extract_probes` (eff = 1 and K, N = 1, F0 of
      16 to 256 and not a multiple of 8, unaligned rows);
-     each kernel's sums bit-identical when it runs twice; the grouped MLPs' BN running statistics bit-identical
+     each kernel's sums bit-identical when it runs twice, and K9's H, Mq
+     and cnt the same bits on two launches and equal, bit for bit, to the
+     twin's order of summation over K9's own dy_0 (`step0_scatter_plain`
+     on CPU copies); the grouped MLPs' BN running statistics bit-identical
      after one step from two copies of the model;
  14. phase 10's bf16 check with the fused path on the card (kernels) and
      on the CPU (plain twins), at the limits of `FUSED_COS`, with two
@@ -202,9 +205,34 @@ through the functions a user runs, without `device`):
      times, phase B's frustums/s and peak memory and `evaluate`'s wall
      time beside the card's name and power limit, and the whole run's
      time.
+The training repeats bit for bit on one card:
+ 27. phase 22's training run twice in this process from one seed: the
+     parameters, BN buffers and Adam moments bit-identical after every
+     one of the 48 steps, and `evaluate` on each run's checkpoint giving
+     equal APs; phase 25's transfer loop run twice: the detector's
+     parameters, buffers and Adam moments bit-identical after every
+     phase-B step (phase 13 holds K9's H, Mq and cnt to the same bits on
+     two launches);
+The transfer study (`scripts/torch_transfer_study.py`, study6's widths:
+v2 bf16, N=512, B=64, C=4, 4,096 train and 1,024 val hard synthetic
+frustums, weak-loss warmup 2,000 steps, per-class diagnostics), cut in
+depth to `STUDY_BOXPC_EPOCHS` BoxPC and `STUDY_EPOCHS` phase-B epochs:
+ 28. its `main` for the transfer and control arms of one seed, with the
+     counters zeroed first: every phase-B step launches K1 8, K5-K7 16 and
+     K8/K9 10 (a rerouted scale fails it), every logged loss finite, the
+     JSON records of the JAX script's keys, `mAP` and `per_class` in [0,
+     1]; a second `main` on the same JSON trains nothing and leaves it
+     unchanged; on the arguments of one phase-B step (`STUDY_CHECK_STEP`,
+     copied to the host as the run goes on), K1 and K5-K9 against their
+     plain twins at phases 5 and 13's limits, K9's H, Mq and cnt twice
+     the same bits and equal to the twin's order over its own dy_0, and
+     on one eval step's K1 and K2; then the runs' time (the copy-out of
+     that step's arguments included) and peak memory.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
-once) and operations at the published peaks. Then a JSON line with the
+once) and operations at the published peaks; K9's member buffer and
+rank table, bytes of its design and not of the function, stand beside
+its bound with the bound they would give. Then a JSON line with the
 ten kernels, and last the JSON ok line. Any failed check exits non-zero
 and prints no ok line.
 """
@@ -279,6 +307,17 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": None}
+
+
+def _script(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Record:
@@ -379,6 +418,40 @@ def _time_ms(fn, warmup: int, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def _check_fps(phase, xyz, k):
+    """K1 against its plain twin: the same indices."""
+    from transferable3d_torch.ops import sampling
+
+    got, ref = sampling.fps_cuda(xyz, k), sampling.fps_plain(xyz, k)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    print(f"{phase} fps [{xyz.shape[0]},{xyz.shape[1]}]->{k}: "
+          f"indices identical {same}", flush=True)
+    _check(same, "FPS kernel indices differ from the plain twin")
+    return float((got - ref).abs().max())
+
+
+def _check_sa_infer(phase, a):
+    """K2 against its plain twin: >= 99% of the pooled values the same
+    bits, max |diff| <= 1% of max |pooled|, and >= 10% nonzero (a pooled
+    output of zeros would hold nothing)."""
+    from transferable3d_torch.ops import fused_sa
+
+    g = fused_sa.sa_infer_cuda(*a).float()
+    r = fused_sa.sa_infer_plain(*a).float()
+    eq = float((g == r).float().mean())
+    err = float((g - r).abs().max())
+    top = float(r.abs().max())
+    nz = float((r != 0).float().mean())
+    print(f"{phase} sa_infer S={a[0].shape[1]} K={a[5]} "
+          f"F={[p.shape[-1] for p in a[6]]}: bit-identical {eq:.5f} "
+          f"max|diff| {err:.4g} (max|pooled| {top:.4g}) "
+          f"nonzero {nz:.3f}", flush=True)
+    _check(eq >= 0.99 and err <= 0.01 * top and nz >= 0.10,
+           "sa_infer kernel disagrees with its plain twin")
+    return err
+
+
 def serve(args, dev, card: str):
     """Phases 3-7 (serving); runs under torch.no_grad(). Returns the
     kernels' JSON entries for K1 and K2."""
@@ -454,33 +527,11 @@ def serve(args, dev, card: str):
               flush=True)
 
     # 5. kernels vs plain twins on the captured arguments
-    fps_err = 0.0
-    for xyz, k in calls["fps"]:
-        got, ref = sampling.fps_cuda(xyz, k), sampling.fps_plain(xyz, k)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref)
-        fps_err = max(fps_err, float((got - ref).abs().max()))
-        print(f"phase 5 fps [{xyz.shape[0]},{xyz.shape[1]}]->{k}: "
-              f"indices identical {same}", flush=True)
-        _check(same, "FPS kernel indices differ from the plain twin")
+    fps_err = max(_check_fps("phase 5", *a) for a in calls["fps"])
     _fps_probes(dev, args.seed)
     sa_err = 0.0
     for a in calls["sa_infer"]:
-        got = fused_sa.sa_infer_cuda(*a)
-        ref = fused_sa.sa_infer_plain(*a)
-        torch.cuda.synchronize()
-        g, r = got.float(), ref.float()
-        eq = float((g == r).float().mean())
-        err = float((g - r).abs().max())
-        top = float(r.abs().max())
-        nz = float((r != 0).float().mean())
-        sa_err = max(sa_err, err)
-        print(f"phase 5 sa_infer S={a[0].shape[1]} K={a[5]} "
-              f"F={[p.shape[-1] for p in a[6]]}: bit-identical {eq:.5f} "
-              f"max|diff| {err:.4g} (max|pooled| {top:.4g}) "
-              f"nonzero {nz:.3f}", flush=True)
-        _check(eq >= 0.99 and err <= 0.01 * top and nz >= 0.10,
-               "sa_infer kernel disagrees with its plain twin")
+        sa_err = max(sa_err, _check_sa_infer("phase 5", a))
         # Every centroid is one of the points it groups, so the main path
         # never has an empty ball: move every other centroid 100 m away
         # to hold the kernel's nearest-point branch against the twin.
@@ -1246,7 +1297,8 @@ def _bf16_agree(got, ref):
 
 
 class FusedChecks:
-    """K5-K9 against their plain twins (phase 13). Every method takes one
+    """K5-K9 against their plain twins (phases 13 and 28). Every method
+    takes one
     call's arguments, runs kernel and twin, prints one line, fails on a
     disagreement and returns the max |diff| of the main output.
 
@@ -1258,9 +1310,11 @@ class FusedChecks:
     backward's (sum dy_j, sum dy_j xhat_j, dW_j, db_j) within 1e-4 of the
     sums of their terms' magnitudes, since db_j is zero in exact
     arithmetic in train mode and the others cancel in part; cnt exact; H within one bf16 step of every slot's magnitude plus 1e-5 of
-    the magnitudes of dh's product terms (the f32 order where terms
-    cancel); Mq within 1e-5 (the atomics' order). Each kernel's sums are
-    bit-identical when it runs twice.
+    the magnitudes of dh's product terms (the twin's dy_0 may round a
+    step away from the kernel's); Mq within 1e-5. Each kernel's sums are
+    bit-identical when it runs twice; K9's H, Mq and cnt too, and they
+    equal, bit for bit, the twin's order of summation
+    (`step0_scatter_plain` on CPU copies) over the kernel's own dy_0.
 
     The backward's sum dy_j and sum dy_j xhat_j are held to the f64 sums
     over the kernel's own dy_j (K8's output; for K9, which does not
@@ -1272,10 +1326,10 @@ class FusedChecks:
     1e-4 of their terms' magnitudes. Their distance from the twin's sums
     is printed beside."""
 
-    def __init__(self):
+    def __init__(self, phase=13):
         from transferable3d_torch.ops import fused_sa, grouping
 
-        self.fs, self.grouping = fused_sa, grouping
+        self.fs, self.grouping, self.phase = fused_sa, grouping, phase
 
     def _check_sums(self, what, names, got, ref, again, mags=None):
         """Forward sums against the twin's norm; with `mags`, backward
@@ -1306,7 +1360,7 @@ class FusedChecks:
         mags = (ref[0].float().abs().sum((0, 1, 2)), ref[2])
         sums += ", " + self._check_sums("K5", ("sum", "sumsq"), got[1:],
                                         ref[1:], again[1:], mags)
-        print(f"phase 13{tag} K5 N={xyz.shape[1]} S={cent.shape[1]} K={k} "
+        print(f"phase {self.phase}{tag} K5 N={xyz.shape[1]} S={cent.shape[1]} K={k} "
               f"F0={pf.shape[-1]}: z1 identical {same}, {sums}", flush=True)
         _check(same, "K5 disagrees with its plain twin")
         return float((got[0].float() - ref[0].float()).abs().max()), ref
@@ -1320,7 +1374,7 @@ class FusedChecks:
         name = "K7" if last else "K6"
         sums = self._check_sums(name, ("sum", "sumsq"), got[1:3], ref[1:3],
                                 again[1:3])
-        line = (f"phase 13{tag} {name} K={z_prev.shape[2]} "
+        line = (f"phase {self.phase}{tag} {name} K={z_prev.shape[2]} "
                 f"F={z_prev.shape[-1]}->{w.shape[-1]}: z' bit-identical "
                 f"{eq:.6f} max|diff| {err:.4g} (max {top:.4g}), {sums}")
         _check(eq >= 0.99 and err <= 0.01 * top,
@@ -1364,7 +1418,7 @@ class FusedChecks:
         own = self._over_own_dy(got[0], z_j, pack_j, ref[1:])
         sums = self._check_sums("K8", self._BWD, got[1:], own, again[1:],
                                 mags)
-        print(f"phase 13{tag} K8 train={train} top={top} K={z_j.shape[2]} "
+        print(f"phase {self.phase}{tag} K8 train={train} top={top} K={z_j.shape[2]} "
               f"F={z_j.shape[-1]}<-{z_j1.shape[-1]}: dy bit-identical "
               f"{eq:.6f} max|diff| {err:.4g} (max {mx:.4g}), {sums}"
               + self._twin_gap(own, ref[1:], mags), flush=True)
@@ -1403,14 +1457,28 @@ class FusedChecks:
         excess = float(((got[4] - ref[4]).abs() / bound).max())
         cnt_same = torch.equal(got[6], ref[6])
         rels = [_rel(got[i], ref[i]) for i in (4, 5, 7, 8)]
-        print(f"phase 13{tag} K9 train={train} top={top} K={k} "
+        # H, Mq, cnt: the same bits on two launches, and equal to the
+        # twin's order (`step0_scatter_plain`, on CPU copies, where
+        # `index_add_` adds in its rows' order) over the kernel's own dy_0
+        twice = all(torch.equal(got[i], again[i]) for i in (4, 5, 6))
+        idx_c, count_c = fs._slots(cent.cpu(), xyz.cpu(), r, k)
+        order = fs.step0_scatter_plain(idx_c, count_c, dy_own.cpu(),
+                                       qc.cpu(), n)
+        in_order = all(torch.equal(got[4 + i].cpu(), order[i])
+                       for i in range(3))
+        print(f"phase {self.phase}{tag} K9 train={train} top={top} K={k} "
               f"F={z_j.shape[-1]}<-{z_j1.shape[-1]}: cnt identical "
               f"{cnt_same}, H max|diff| {err:.4g} = {excess:.3f} of its "
               f"bound, rel H {rels[0]:.2e} Mq {rels[1]:.2e} Sdy "
-              f"{rels[2]:.2e} Sz {rels[3]:.2e}, {sums}", flush=True)
+              f"{rels[2]:.2e} Sz {rels[3]:.2e}; H, Mq, cnt twice the same "
+              f"bits {twice}, equal to the twin's order over its own dy_0 "
+              f"{in_order}; {sums}", flush=True)
         _check(cnt_same and excess <= 1.0 and rels[1] <= 1e-5
                and rels[2] <= 1e-2 and rels[3] <= 1e-5,
                "K9 disagrees with its plain twin")
+        _check(twice, "K9's H, Mq or cnt differ between two launches")
+        _check(in_order, "K9's H, Mq or cnt differ from the twin's order "
+               "over its own dy_0")
         return err, ref
 
 
@@ -2027,6 +2095,13 @@ def _train_fused(args, dev, card: str, ctx):
                    * f) * 4
         return by, 4.0 * rows * w_j.numel()
 
+    def scratch(key, a):
+        """K9's member buffer and rank table: bytes of its design, not of
+        the function, so printed beside the bound and not in it."""
+        return (fused_sa.step0_scratch_bytes(a[5], a[6], a[11],
+                                             a[2].shape[2], a[2].shape[-1])
+                if key == "sa_bwd_step0" else 0)
+
     fs = fused_sa
     per_kernel = {
         "sa_extract": (fs.sa_extract_cuda, fs.sa_extract_plain,
@@ -2040,15 +2115,17 @@ def _train_fused(args, dev, card: str, ctx):
     kernels = []
     for name, repl, src in FUSED_KERNELS:
         kern, plain, cl = per_kernel[name]
-        tot_k = tot_p = nbytes = flops = 0.0
+        tot_k = tot_p = nbytes = flops = extra = 0.0
         for a in cl:
             mk = _time_ms(lambda: kern(*a), 2, 10)
             mp = _time_ms(lambda: plain(*a), 1, 3)
             by, fl = cost(name, a)
+            sb = scratch(name, a)
             tot_k += mk
             tot_p += mp
             nbytes += by
             flops += fl
+            extra += sb
             z = a[0] if name.startswith("sa_fwd") else (
                 a[2] if name.startswith("sa_bwd") else None)
             shape = (f"S={a[0].shape[1]} K={a[5]} F0={a[2].shape[-1]}"
@@ -2056,12 +2133,19 @@ def _train_fused(args, dev, card: str, ctx):
                      f"S={z.shape[1]} K={z.shape[2]} F={z.shape[-1]}")
             print(f"times {name} {shape}: kernel {mk:.4f} ms, plain "
                   f"{mp:.4f} ms, bound "
-                  f"{_bound(by, fl, PEAK_BF16)[0]:.4f} ms {card}",
-                  flush=True)
+                  f"{_bound(by, fl, PEAK_BF16)[0]:.4f} ms"
+                  + (f" (member buffer and rank table {sb / 1e6:.2f} MB, "
+                     f"bound with them "
+                     f"{_bound(by + sb, fl, PEAK_BF16)[0]:.4f} ms)"
+                     if sb else "") + f" {card}", flush=True)
         bound = _bound(nbytes, flops, PEAK_BF16)
         print(f"times {name} per step ({len(cl)} calls): kernel "
               f"{tot_k:.4f} ms, plain {tot_p:.4f} ms, bound {bound[0]:.4f} "
-              f"ms by {bound[1]} {card}", flush=True)
+              f"ms by {bound[1]}"
+              + (f"; member buffer and rank table {extra / 1e6:.2f} MB, "
+                 f"bound with them "
+                 f"{_bound(nbytes + extra, flops, PEAK_BF16)[0]:.4f} ms"
+                 if extra else "") + f" {card}", flush=True)
         kernels.append(_entry(name, "transferable3d_torch/csrc/" + src, repl,
                               launches[name], errs[name], tot_k, tot_p,
                               bound))
@@ -2558,6 +2642,18 @@ def _driver_launches(launches, steps, evals, what):
     _expect_launches(launches, want)
 
 
+def driver_cfg(seed: int, log_dir: str):
+    """Phase 22's configuration: config 2's widths on v2 bf16."""
+    from transferable3d_torch.train import config as config_lib
+
+    return dataclasses.replace(
+        config_lib.PRESETS["config2_fpointnet_v1_sunrgbd"],
+        model="frustum_pointnets_v2", compute_dtype="bfloat16",
+        synthetic_train=512, synthetic_val=128, device_data=True,
+        max_steps=DRIVER_STEPS, eval_every_epochs=1, ckpt_every_epochs=1,
+        log_dir=log_dir, seed=seed)
+
+
 def driver(args, dev, card: str):
     """Phases 22-23: `train_sup.train` and `test.evaluate` on the card."""
     with fused_sa_env(None):
@@ -2571,18 +2667,12 @@ def _driver(args, dev, card: str):
     from transferable3d_torch.data import device_dataset
     from transferable3d_torch.eval import ap as ap_lib
     from transferable3d_torch.ops import _build
-    from transferable3d_torch.train import config as config_lib
     from transferable3d_torch.train import schedules, train_loop, train_sup
     from transferable3d_torch.train import test as test_lib
     from transferable3d_torch.utils.checkpoint import CheckpointManager
 
     tmp = tempfile.TemporaryDirectory(prefix="t3d_driver_")
-    cfg = dataclasses.replace(
-        config_lib.PRESETS["config2_fpointnet_v1_sunrgbd"],
-        model="frustum_pointnets_v2", compute_dtype="bfloat16",
-        synthetic_train=512, synthetic_val=128, device_data=True,
-        max_steps=DRIVER_STEPS, eval_every_epochs=1, ckpt_every_epochs=1,
-        log_dir=os.path.join(tmp.name, "log"), seed=args.seed)
+    cfg = driver_cfg(args.seed, os.path.join(tmp.name, "log"))
     _check((cfg.num_point, cfg.num_channels, cfg.batch_size)
            == (1024, 6, 32), f"config 2's widths changed: {cfg}")
     epoch_steps = cfg.synthetic_train // cfg.batch_size
@@ -2746,6 +2836,21 @@ TRANSFER_STEPS, TRANSFER_BOXPC_EPOCHS = 32, 2
 REFINE_STEPS, REFINE_B = 500, 64
 
 
+def transfer_cfg(seed: int, log_dir: str):
+    """Phase 25's configuration: config 4's widths, a v2 bf16 detector."""
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import train_semisup
+
+    return train_semisup.SemisupConfig(**dataclasses.asdict(
+        dataclasses.replace(
+            config_lib.PRESETS["config4_transfer"],
+            model="frustum_pointnets_v2", compute_dtype="bfloat16",
+            synthetic_train=640, synthetic_val=160, device_data=True,
+            max_steps=TRANSFER_STEPS, eval_every_epochs=1,
+            ckpt_every_epochs=1, log_dir=log_dir, seed=seed)),
+        boxpc_epochs=TRANSFER_BOXPC_EPOCHS)
+
+
 def _flat_grads(model):
     return torch.cat([g.reshape(-1).cpu() for g in _grads(model).values()])
 
@@ -2887,20 +2992,13 @@ def _transfer(args, dev, card: str):
     from transferable3d_torch.models import registry
     from transferable3d_torch.models.boxpc import BoxPCFitNet
     from transferable3d_torch.ops import _build
-    from transferable3d_torch.train import config as config_lib
     from transferable3d_torch.train import semisup, train_loop
     from transferable3d_torch.train import test as test_lib
     from transferable3d_torch.train import train_semisup, train_sup
     from transferable3d_torch.utils.checkpoint import CheckpointManager
 
     tmp = tempfile.TemporaryDirectory(prefix="t3d_transfer_")
-    cfg = train_semisup.SemisupConfig(**dataclasses.asdict(dataclasses.replace(
-        config_lib.PRESETS["config4_transfer"],
-        model="frustum_pointnets_v2", compute_dtype="bfloat16",
-        synthetic_train=640, synthetic_val=160, device_data=True,
-        max_steps=TRANSFER_STEPS, eval_every_epochs=1, ckpt_every_epochs=1,
-        log_dir=os.path.join(tmp.name, "log"), seed=args.seed)),
-        boxpc_epochs=TRANSFER_BOXPC_EPOCHS)
+    cfg = transfer_cfg(args.seed, os.path.join(tmp.name, "log"))
     _check((cfg.num_point, cfg.num_channels, cfg.batch_size)
            == (1024, 6, 32), f"config 4's widths changed: {cfg}")
     b = cfg.batch_size
@@ -3077,6 +3175,314 @@ def _transfer(args, dev, card: str):
     tmp.cleanup()
 
 
+# Phase 27: the training repeats bit for bit on one card.
+def repro(args, dev, card: str):
+    """Phase 27: phase 22's training and phase 25's phase B, each run twice
+    in this process from one seed."""
+    with fused_sa_env(None):
+        _repro(args, dev, card)
+
+
+def flat_state(model, optimizer=None):
+    """Every parameter and buffer, and Adam's moments, as clones."""
+    out = [v.detach().clone() for v in model.state_dict().values()]
+    if optimizer is not None:
+        for st in optimizer.adam.state.values():
+            out += [st[k].detach().clone() for k in ("exp_avg", "exp_avg_sq")
+                    if k in st]
+    return out
+
+
+def first_parting(a, b):
+    """(first step index at which two runs' recorded states differ or
+    None, tensors that differ at the end, their largest |diff|)."""
+    first = None
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+            first = i
+            break
+    end = [(u, v) for u, v in zip(a[-1], b[-1]) if not torch.equal(u, v)]
+    gap = max((float((u.float() - v.float()).abs().max()) for u, v in end),
+              default=0.0)
+    return first, len(end), gap
+
+
+def _recording(make, record, state_of):
+    """`make` (a step factory) whose steps append `state_of(state)` after
+    every step to `record`."""
+    def make_recording(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(*args):
+            out = fn(*args)
+            record.append(state_of(out[0]))
+            return out
+        return step
+    return make_recording
+
+
+def run_driver(seed, tmp, tag):
+    """Phase 22's training; the state after every step."""
+    from transferable3d_torch.train import train_loop, train_sup
+
+    record = []
+    saved = train_loop.make_train_step
+    train_loop.make_train_step = _recording(
+        saved, record, lambda s: flat_state(s.model, s.optimizer))
+    try:
+        train_sup.train(driver_cfg(seed, os.path.join(tmp, tag)))
+    finally:
+        train_loop.make_train_step = saved
+    return record
+
+
+def run_transfer(seed, tmp, tag):
+    """Phase 25's transfer loop; the detector's state after every
+    phase-B step."""
+    from transferable3d_torch.train import semisup, train_semisup
+
+    record = []
+    saved = semisup.make_semisup_train_step
+    semisup.make_semisup_train_step = _recording(
+        saved, record,
+        lambda s: flat_state(s.detector.model, s.detector.optimizer))
+    try:
+        train_semisup.train(transfer_cfg(seed, os.path.join(tmp, tag)))
+    finally:
+        semisup.make_semisup_train_step = saved
+    return record
+
+
+def _repro(args, dev, card: str):
+    import tempfile
+
+    from transferable3d_torch.train import test as test_lib
+
+    tmp = tempfile.TemporaryDirectory(prefix="t3d_repro_")
+    t0 = time.perf_counter()
+    runs = [run_driver(args.seed, tmp.name, f"driver{i}") for i in range(2)]
+    aps = [test_lib.evaluate(driver_cfg(args.seed, os.path.join(
+        tmp.name, f"driver{i}")), os.path.join(tmp.name, f"r{i}"))
+        for i in range(2)]
+    first, end, _ = first_parting(*runs)
+    print(f"phase 27 driver twice ({DRIVER_STEPS} steps, "
+          f"{len(runs[0][-1])} tensors: parameters, BN buffers, Adam "
+          f"moments): "
+          + ("bit-identical after every step" if first is None else
+             f"part after step {first + 1}, {end} tensors differ at the end")
+          + f"; evaluate mAP@0.25 {aps[0]['mAP']:.6f} and "
+          f"{aps[1]['mAP']:.6f}, APs equal {aps[0] == aps[1]}", flush=True)
+    _check(len(runs[0]) == len(runs[1]) == DRIVER_STEPS and first is None,
+           "phase 27: the driver's two runs from one seed differ")
+    _check(aps[0] == aps[1], "phase 27: evaluate gives other APs on the "
+           "second run's checkpoint")
+    runs = [run_transfer(args.seed, tmp.name, f"transfer{i}")
+            for i in range(2)]
+    first, end, _ = first_parting(*runs)
+    print(f"phase 27 transfer loop twice ({TRANSFER_STEPS} phase-B steps, "
+          f"the detector's {len(runs[0][-1])} tensors): "
+          + ("bit-identical after every step" if first is None else
+             f"part after step {first + 1}, {end} tensors differ at the end")
+          + f"; {time.perf_counter() - t0:.1f} s {card}", flush=True)
+    _check(len(runs[0]) == len(runs[1]) == TRANSFER_STEPS and first is None,
+           "phase 27: the transfer loop's two runs from one seed differ")
+    tmp.cleanup()
+
+
+# Phase 28: the transfer study (scripts/torch_transfer_study.py) at its
+# published widths (N=512, B=64, C=4, hard synthetic frustums, v2 bf16),
+# cut in depth: STUDY_BOXPC_EPOCHS BoxPC epochs and STUDY_EPOCHS phase-B
+# epochs of the protocol's 40 and 150, at its 4,096 train and 1,024 val
+# frustums.
+STUDY_EPOCHS, STUDY_BOXPC_EPOCHS = 2, 2
+# The phase-B step (of the transfer arm's second epoch) and the eval step
+# whose kernel arguments are captured and held against the plain twins.
+STUDY_CHECK_STEP, STUDY_CHECK_EVAL = 25, 0
+STUDY_KEYS = {"variant", "seed", "model", "mAP", "per_class",
+              "train_seconds"}
+
+
+def _to(x, dev):
+    """x (a tensor, or a tuple or list holding tensors) copied to `dev`."""
+    if torch.is_tensor(x):
+        return x.detach().to(dev, copy=True)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+class _Capture:
+    """A `_counting` hook that, around step `at` only, records the
+    arguments of each (module, function) as copies on the host, so that
+    they hold no device memory while the run goes on."""
+
+    def __init__(self, at, targets):
+        self.at, self.targets = at, targets
+        self.calls = {name: [] for _, name in targets}
+
+    def __call__(self, i, args):
+        if i != self.at:
+            return
+        if args is None:
+            for mod, name in self.targets:
+                setattr(mod, name, self.saved[name])
+            return
+
+        def recorder(fn, out):
+            def rec(*a):
+                out.append(_to(a, "cpu"))
+                return fn(*a)
+            return rec
+
+        self.saved = {name: getattr(mod, name) for mod, name in self.targets}
+        for mod, name in self.targets:
+            setattr(mod, name, recorder(self.saved[name], self.calls[name]))
+
+
+def _study_kernels(step_calls, eval_calls, step_launches):
+    """K1 and K5-K9 on one phase-B step's arguments and K1 and K2 on one
+    eval step's, each against its plain twin at phases 5 and 13's limits;
+    K9's H, Mq and cnt also twice the same bits and equal, bit for bit,
+    to the twin's order over its own dy_0."""
+    calls, ev = ({k: [_to(a, "cuda") for a in v] for k, v in c.calls.items()}
+                 for c in (step_calls, eval_calls))
+    k6 = [a for a in calls["sa_fwd_step_cuda"] if not a[4]]
+    k7 = [a for a in calls["sa_fwd_step_cuda"] if a[4]]
+    for c in (calls, ev):  # FPS of one point launches nothing
+        c["farthest_point_sample"] = [a for a in c["farthest_point_sample"]
+                                      if a[1] > 1]
+    got = {"fps": len(calls["farthest_point_sample"]),
+           "sa_extract": len(calls["sa_extract_cuda"]),
+           "sa_fwd_step": len(k6), "sa_fwd_last": len(k7),
+           "sa_bwd_step": len(calls["sa_bwd_step_cuda"]),
+           "sa_bwd_step0": len(calls["sa_bwd_step0_cuda"])}
+    _check(got == {k: step_launches[k] for k in got},
+           f"phase 28: the captured step's calls {got} are not its launches "
+           f"{step_launches}")
+    _check(ev["farthest_point_sample"] and ev["sa_infer"],
+           "phase 28: no eval step was captured")
+    for a in calls["farthest_point_sample"] + ev["farthest_point_sample"]:
+        _check_fps("phase 28", *a)
+    for a in ev["sa_infer"]:
+        _check_sa_infer("phase 28", a)
+    check = FusedChecks(phase=28)
+    for a in calls["sa_extract_cuda"]:
+        share = _ball_shares(a[0], a[1], a[4], a[5])
+        print(f"phase 28 balls S={a[0].shape[1]} N={a[1].shape[1]} K={a[5]} "
+              f"r={a[4]}: " + " ".join(f"{nm} {v:.4f}"
+                                       for nm, v in share.items()),
+              flush=True)
+        check.extract("", *a)
+    for a in k6 + k7:
+        check.fwd_step("", *a)
+    for a in calls["sa_bwd_step_cuda"]:
+        check.bwd_step("", *a)
+    for a in calls["sa_bwd_step0_cuda"]:
+        check.bwd_step0("", *a)
+
+
+def study(args, dev, card: str):
+    """Phase 28: `torch_transfer_study.main` for the transfer and control
+    arms of one seed, then again on its JSON, which must skip both."""
+    with fused_sa_env(None):
+        _study(args, dev, card)
+
+
+def _study(args, dev, card: str):
+    import io
+    import tempfile
+
+    from transferable3d_torch.models import pointnet2
+    from transferable3d_torch.ops import _build, fused_sa
+    from transferable3d_torch.train import semisup, train_loop
+
+    mod = _script("torch_transfer_study")
+    tmp = tempfile.TemporaryDirectory(prefix="t3d_study_")
+    out_json = os.path.join(tmp.name, "study.json")
+    argv = ["--model", "frustum_pointnets_v2", "--diag", "--seed_list",
+            str(args.seed), "--variants", "transfer,control", "--epochs",
+            str(STUDY_EPOCHS), "--boxpc_epochs", str(STUDY_BOXPC_EPOCHS),
+            "--train_size", "4096", "--val_size", "1024", "--num_point",
+            "512", "--batch_size", "64", "--weak_warmup_steps", "2000",
+            "--out_dir", tmp.name, "--out_json", out_json]
+    steps, evals = [], []
+    step_calls = _Capture(STUDY_CHECK_STEP, (
+        (pointnet2, "farthest_point_sample"), (fused_sa, "sa_extract_cuda"),
+        (fused_sa, "sa_fwd_step_cuda"), (fused_sa, "sa_bwd_step_cuda"),
+        (fused_sa, "sa_bwd_step0_cuda")))
+    eval_calls = _Capture(STUDY_CHECK_EVAL, (
+        (pointnet2, "farthest_point_sample"), (fused_sa, "sa_infer")))
+    saved = (semisup.make_semisup_train_step, train_loop.make_eval_step)
+    semisup.make_semisup_train_step = _counting(saved[0], steps, step_calls)
+    train_loop.make_eval_step = _counting(saved[1], evals, eval_calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        mod.main(argv)
+    finally:
+        semisup.make_semisup_train_step, train_loop.make_eval_step = saved
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = dict(_build.LAUNCHES)
+    print(f"phase 28 study main: {run_s:.2f} s, {len(steps)} phase-B steps, "
+          f"{len(evals)} eval steps, launches {total}", flush=True)
+    rerouted = total["fused_sa_rerouted"]
+    if rerouted:
+        print(f"phase 28: fused_sa_rerouted {rerouted}, K3/K4 "
+              f"{total['extract_fwd']}/{total['extract_bwd']}", flush=True)
+    want_step = {"fps": 8, "sa_extract": 16, "sa_fwd_step": 16,
+                 "sa_fwd_last": 16, "sa_bwd_step": 10, "sa_bwd_step0": 10}
+    bad = [(i, r) for i, r in enumerate(steps)
+           if r != {k: want_step.get(k, 0) for k in r}]
+    _check(steps and not rerouted and not bad,
+           f"phase 28: a phase-B step launched other kernels than "
+           f"{want_step}: {bad[:2]}")
+    with open(out_json) as f:
+        results = json.load(f)
+    _check([(r["variant"], r["seed"]) for r in results]
+           == [("transfer", args.seed), ("control", args.seed)]
+           and all(set(r) == STUDY_KEYS for r in results),
+           f"phase 28: the study's JSON records: {results}")
+    for r in results:
+        rows = _csv_rows(os.path.join(tmp.name, f"{r['variant']}_s{r['seed']}",
+                                      "metrics_train.csv"))
+        terms = [k for k in rows[-1] if k.endswith("_loss")]
+        print(f"phase 28 {r['variant']}: mAP@0.25 {r['mAP']:.4f}, per class "
+              + " ".join(f"{k} {v:.4f}" for k, v in r["per_class"].items())
+              + f", train {r['train_seconds']} s; last train row "
+              + " ".join(f"{k} {rows[-1][k]:.5g}" for k in terms), flush=True)
+        _check(all(math.isfinite(row[k]) for row in rows for k in terms),
+               f"phase 28 {r['variant']}: a logged loss is not finite")
+        _check(all(0.0 <= v <= 1.0 for v in [r["mAP"],
+                                             *r["per_class"].values()]),
+               f"phase 28 {r['variant']}: an AP outside [0, 1]")
+    before = len(steps)
+    semisup.make_semisup_train_step = _counting(saved[0], steps)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main(argv)
+    finally:
+        semisup.make_semisup_train_step = saved[0]
+    with open(out_json) as f:
+        again = json.load(f)
+    print(f"phase 28 resume: {len(steps) - before} new steps, JSON "
+          f"{'unchanged' if again == results else 'changed'}; summary:\n"
+          + out.getvalue().strip(), flush=True)
+    _check(len(steps) == before and again == results,
+           "phase 28: a second main on the same JSON trained again")
+    _study_kernels(step_calls, eval_calls, steps[STUDY_CHECK_STEP])
+    per_run = len(steps) // 2
+    print(f"times study (cut: {STUDY_BOXPC_EPOCHS} BoxPC and {STUDY_EPOCHS} "
+          f"phase-B epochs, {per_run} phase-B steps a run at B=64, N=512, "
+          f"C=4): {run_s:.2f} s for two runs, peak memory {peak:.3f} GiB "
+          f"{card}", flush=True)
+    tmp.cleanup()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3122,6 +3528,8 @@ def main() -> None:
     kernels += e2e(args, dev, card, ctx)
     driver(args, dev, card)
     transfer(args, dev, card)
+    repro(args, dev, card)
+    study(args, dev, card)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

@@ -21,7 +21,17 @@ count), the second pass (the pooled rows' dz, the ball query's members),
 the two products with dy_j's epilogue, and the way out (K8's stores, K9's
 scatter and Sdy). The clocks cost a few hundred cycles a tile.
 
-    python3 scripts/torch_time_sa_bwd.py [--batch 128] [--iters 10] [--phases]
+With `--step` the launches are instead those of one fused v2 bf16
+train step at config 2's widths (N=1024, C=6, `--batch` frustums,
+default 32, from the driver's own model and device dataset of one seed):
+each K8 and K9 launch of the step is captured and timed on its own
+arguments, in the step's order. K9's line also gives the bytes of its
+member buffer and rank table, which the balls of that step decide.
+`--root PATH` imports the port from another checkout (a `git archive`
+of another commit), so that two trees are timed in one call.
+
+    python3 scripts/torch_time_sa_bwd.py [--batch 128] [--iters 10]
+        [--phases] [--step] [--root PATH]
 
 Needs an NVIDIA GPU; the kernels are built at first use.
 """
@@ -36,10 +46,6 @@ import sys
 from pathlib import Path
 
 import torch
-
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-from transferable3d_torch.ops import _build, fused_sa  # noqa: E402
 
 # name, N, S, radius, K, (F0, F1, F2)
 SCALES = [("seg SA1 s1", 1024, 128, 0.2, 32, (32, 32, 64)),
@@ -84,16 +90,111 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def captured_step(batch: int, seed: int):
+    """The K8 and K9 launches of one fused v2 bf16 train step at config
+    2's widths, as (tag, function, arguments) in the step's order."""
+    import dataclasses
+
+    from transferable3d_torch.data import device_dataset
+    from transferable3d_torch.ops import fused_sa
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import train_loop, train_sup
+
+    cfg = dataclasses.replace(
+        config_lib.PRESETS["config2_fpointnet_v1_sunrgbd"],
+        model="frustum_pointnets_v2", compute_dtype="bfloat16",
+        synthetic_train=max(512, batch), synthetic_val=batch,
+        batch_size=batch, seed=seed)
+    train_sup.f32_numerics()
+    train_ds, _ = train_sup.build_datasets(cfg)
+    model = train_sup.build_model(cfg, cfg.num_channels, "cuda")
+    lr, bn = train_sup.build_schedules(cfg)
+    state = train_loop.create_train_state(
+        model, train_loop.make_optimizer(lr), seed=seed)
+    data = device_dataset.build_device_dataset(
+        train_ds.records, cfg.bin_config(), cfg.max_points_device)
+    step_batch = next(device_dataset.DeviceEpochIterator(
+        data, cfg.bin_config(), cfg.batch_size, cfg.num_point,
+        seed=seed).epoch())
+    calls = []
+    saved = {}
+    for tag, name in (("K8", "sa_bwd_step_cuda"), ("K9", "sa_bwd_step0_cuda")):
+        fn = saved[name] = getattr(fused_sa, name)
+
+        def wrapped(*a, _fn=fn, _tag=tag):
+            calls.append((_tag, _fn, a))
+            return _fn(*a)
+        setattr(fused_sa, name, wrapped)
+    try:
+        train_loop.make_train_step(cfg.bin_config(), lr, bn)(state, step_batch)
+    finally:
+        for name, fn in saved.items():
+            setattr(fused_sa, name, fn)
+    torch.cuda.synchronize()
+    return calls
+
+
+def time_step(args, card) -> int:
+    """Each K8 and K9 launch of one captured train step, timed on its
+    own arguments."""
+    totals = {"K8": [0.0, 0, 0.0], "K9": [0.0, 0, 0.0]}
+    for tag, fn, a in captured_step(args.batch, args.seed):
+        ms = _ms(lambda: fn(*a), 2, args.iters)
+        z_j, z_j1 = a[2], a[3]
+        k, fj, fj1 = z_j.shape[2], z_j.shape[-1], z_j1.shape[-1]
+        tensors = [t for t in a if torch.is_tensor(t)]
+        tensors += [t for t in a[4] if torch.is_tensor(t)] if a[1] else []
+        by = _nbytes(*tensors)
+        extra = ""
+        if tag == "K8":
+            by += z_j.numel() * 2  # dy_j out
+        else:
+            b, s, n = z_j.shape[0], z_j.shape[1], a[6].shape[1]
+            by += (b * n * (2 * fj + 1) + 2 * b * s * fj) * 4
+            # a tree from before K9's member buffer has no scratch
+            scratch = getattr(fused_sa, "step0_scratch_bytes", None)
+            mem = scratch(a[5], a[6], a[11], k, fj) if scratch else 0
+            totals[tag][2] += mem
+            extra = (f", member buffer and rank table {mem / 1e6:.2f} MB "
+                     f"(bound with them "
+                     f"{(by + mem) / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+                     if mem else "")
+        bound = by / HBM_BYTES_PER_S * 1e3
+        totals[tag][0] += ms
+        totals[tag][1] += by
+        print(f"{tag} step K={k} F={fj}<-{fj1} top={a[1]} train={a[0]}: "
+              f"{ms:.4f} ms, {by / 1e6:.1f} MB, bound {bound:.4f} ms"
+              f"{extra} ({card})", flush=True)
+        if args.phases:
+            print(_phase_cycles(lambda: fn(*a)), flush=True)
+    for tag, (ms, by, mem) in totals.items():
+        print(f"{tag} per captured step (B={args.batch}): {ms:.4f} ms, bound "
+              f"by bytes {by / HBM_BYTES_PER_S * 1e3:.4f} ms"
+              + (f", with the member buffer and rank table "
+                 f"{(by + mem) / HBM_BYTES_PER_S * 1e3:.4f} ms" if mem else "")
+              + f" ({card})", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-repeats", action="store_true",
                     help="K distinct random rows a centroid")
     ap.add_argument("--phases", action="store_true",
                     help="build with the phase clocks and print them")
+    ap.add_argument("--step", action="store_true",
+                    help="time the launches of one captured train step")
+    ap.add_argument("--root", default=None,
+                    help="import the port from this checkout")
     args = ap.parse_args()
+    args.batch = args.batch or (32 if args.step else 128)
+    sys.path.insert(0, os.path.abspath(args.root) if args.root
+                    else str(Path(__file__).resolve().parent.parent))
+    global _build, fused_sa
+    from transferable3d_torch.ops import _build, fused_sa
     if args.phases:
         os.environ[_build.CLOCKS_ENV] = "1"
     if not torch.cuda.is_available():
@@ -104,7 +205,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; port from {os.path.dirname(fused_sa.__file__)}",
+          flush=True)
+    if args.step:
+        return time_step(args, card)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     bf = torch.bfloat16
 

@@ -480,7 +480,16 @@ def _run_train_kernels(b, n, s, r, k, dims, all_empty=False):
         assert _rel(sdy_s, ref[7]) <= 1e-2 and _rel(sz_s, ref[8]) <= 1e-5
         again = fs.sa_bwd_step0(train, top, zj, zj1, dy_src, cent, xyz, qcj,
                                 pj, pj1, w, r)
-        assert all(torch.equal(a, b_) for a, b_ in zip(got[:4], again[:4]))
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        # H, Mq and cnt have one owner each: the twin's order of summation
+        # over the kernel's own dy_0 (K8's body, launched uncounted), on
+        # CPU copies, bit for bit
+        dy_own = fs._bwd_launch("dy_0", False, train, top, zj, zj1, dy_src,
+                                pj, pj1, w, None)[0]
+        idx_c, count_c = fs._slots(cent.cpu(), xyz.cpu(), r, k)
+        order = fs.step0_scatter_plain(idx_c, count_c, dy_own.cpu(),
+                                       qcj.cpu(), n)
+        assert all(torch.equal(a.cpu(), b_) for a, b_ in zip(got[4:7], order))
     torch.cuda.synchronize()
     after = _build.LAUNCHES
     assert after["sa_extract"] == before["sa_extract"] + 2

@@ -360,6 +360,77 @@ def test_backward_twins_exact_on_integers(layout):
         _assert_sum_close(mine, theirs, exact=True, what=name)
 
 
+# Heavy collisions for K9's sums onto the points: (B, S, N, K, F0,
+# radius). Few points in many full balls, short balls whose members fill
+# up to K slots, empty balls.
+STEP0_COLLIDE = {
+    "full_balls": (2, 32, 40, 64, 16, 5.0),
+    "short_balls": (2, 24, 64, 128, 16, 0.3),
+    "mixed": (3, 48, 96, 32, 32, 0.6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP0_COLLIDE))
+def test_step0_twin_is_the_member_sequential_sum(case):
+    """K9's twin adds H, Mq and cnt in the order the card's K9 adds them,
+    bit for bit: each member's slot sum in f32 from +0.0 over its slots
+    r - 1, r - 1 + eff, ... in ascending order, then onto its point from
+    +0.0 in ascending s; Mq the members' mult * qc[s] and cnt their mult,
+    mult = (K - r) // eff + 1, in the same order."""
+    b, s, npt, k, f0, r = STEP0_COLLIDE[case]
+    rng = np.random.RandomState(11)
+    xyz = rng.normal(0, 0.6, (b, npt, 3)).astype(np.float32)
+    cent = xyz[:, rng.randint(0, npt, s)] + rng.normal(0, 0.05, (b, s, 3))
+    cent = cent.astype(np.float32)
+    cent[:, ::5] += 100.0
+    dy0 = t(rng.normal(0, 1, (b, s, k, f0)).astype(np.float32)).bfloat16()
+    qc = t(rng.normal(0, 1, (b, s, f0)).astype(np.float32)).bfloat16()
+    idx, count = tfs._slots(t(cent), t(xyz), r, k)
+    h, mq, cnt = tfs.step0_scatter_plain(idx, count, dy0, qc, npt)
+    idx, d, q = n(idx), n(dy0.float()), n(qc.float())
+    eff = np.clip(n(count), 1, k)
+    assert eff.min() == 1 and eff.max() > 1  # empty and many-member balls
+    seq_h = np.zeros((b, npt, f0), np.float32)
+    seq_q = np.zeros((b, npt, f0), np.float32)
+    seq_c = np.zeros((b, npt), np.float32)
+    for bb in range(b):
+        for ss in range(s):
+            e = int(eff[bb, ss])
+            for j in range(e):
+                m = np.zeros(f0, np.float32)
+                for kk in range(j, k, e):
+                    m += d[bb, ss, kk]
+                mult = np.float32((k - 1 - j) // e + 1)
+                p = idx[bb, ss, j]
+                seq_h[bb, p] += m
+                seq_q[bb, p] += mult * q[bb, ss]
+                seq_c[bb, p] += mult
+    assert seq_c.max() >= k  # some point fills K slots or more
+    np.testing.assert_array_equal(n(h), seq_h)
+    np.testing.assert_array_equal(n(mq), seq_q)
+    np.testing.assert_array_equal(n(cnt)[:, 0], seq_c)
+    assert int(n(cnt).sum()) == b * s * k  # every slot has one point
+
+
+def test_step0_table_width():
+    assert [tfs.step0_table_width(s) for s in (1, 4, 5, 32, 127, 128)] == [
+        4, 4, 8, 32, 128, 128]
+
+
+def test_step0_scratch_bytes_counts_the_balls_members():
+    """K9's scratch at hand-placed balls: centroid 0 holds points 0-2,
+    centroid 1 none (eff 1, its nearest point), centroid 2 all five but
+    K = 4 of them; the member rows (f32, written and read), the table
+    (zeroed and written, then read: S = 3 rounds up to 4 bytes a point),
+    the member bytes and eff."""
+    xyz = torch.tensor([[[0.0, 0, 0], [0.05, 0, 0], [0, 0.05, 0],
+                         [0.3, 0, 0], [0.35, 0, 0]]])
+    cent = torch.tensor([[[0.0, 0, 0], [9.0, 9, 9], [0.17, 0, 0]]])
+    members, f0 = 3 + 1 + 4, 16
+    assert tfs.step0_scratch_bytes(cent, xyz, 0.2, 4, f0) == (
+        2 * members * f0 * 4 + 2 * 5 * 4 + members + 2 * 3 * 4)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     c = _case(0)
     z0, z1 = t(c["zs"][0]).bfloat16(), t(c["zs"][1]).bfloat16()

@@ -54,6 +54,44 @@ def test_chip_smoke_imports_no_jax():
                         "transferable3d_tpu"}, names
 
 
+_BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "transferable3d_tpu"}
+
+_SCRIPT_PROBE = r"""
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("script", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod.parser()
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "flax", "optax", "orbax",
+                         "transferable3d_tpu"))))
+"""
+
+
+def test_port_scripts_import_no_jax():
+    """The port's scripts run on the machine with the card: none names
+    JAX or the JAX package in an import, and the transfer study script
+    loads (with its parser built) without pulling either in."""
+    import ast
+
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_transfer_study.py" in scripts
+    for path in scripts:
+        names = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert not names & _BANNED, (path.name, names)
+    res = subprocess.run(
+        [sys.executable, "-c", _SCRIPT_PROBE,
+         str(ROOT / "scripts" / "torch_transfer_study.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout) == []
+
+
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,

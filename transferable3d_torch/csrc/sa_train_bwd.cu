@@ -20,11 +20,13 @@
 //   sums over all rows: dW_j = h_j^T dz, db_j = sum dz, sum dy_j,
 //       sum dy_j * xhat_j;
 //   K8 writes dy_j [B, S, K, F_j] bf16;
-//   K9 (j = 0) does not: with the members of ball_select.cuh it adds, per
-//       member n with 1-based rank r <= eff, the f32 sum of dy_0 over its
-//       slots (r-1, r-1+eff, ...) to H[b, n], mult = (K - r) / eff + 1
-//       (integers) to cnt[b, n] and mult * qc[s] to Mq[b, n], and writes
-//       per centroid Sdy = sum_k dy_0 and Sz = sum_k z_j.
+//   K9 (j = 0) does not: with the members of ball_select.cuh, per member
+//       n with 1-based rank r <= eff, m = the f32 sum of dy_0 over its
+//       slots (r-1, r-1+eff, ...) in ascending order and mult = (K - r) /
+//       eff + 1 (integers); H[b, n] = the sum of m, cnt[b, n] that of
+//       mult and Mq[b, n] that of mult * qc[s], each over the centroids
+//       that took n in ascending s, in f32 from +0; and per centroid Sdy
+//       = sum_k dy_0 and Sz = sum_k z_j.
 //
 // What bounds them on this card: bytes. Two or three [rows, F] bf16
 // streams come in and one goes out around two products of F_j * F_{j+1}
@@ -70,12 +72,23 @@
 //     rounded f32 add.
 //   * K9's ball query is redone by all warps in two sweeps over the
 //     points (count, then place), without a block barrier of its own.
+//   * K9's sums onto the points are the same bits on every run: no
+//     floating-point atomics, each output element one owner. The main
+//     launch writes each member's slot sum m (f32) to row (c, r - 1) of a
+//     member buffer [C, K, F0], its rank r to byte s of the point's row of
+//     a zeroed rank table [B, N, S rounded up to 4] and eff to [C]; a
+//     second launch (`sa_bwd_gather_kernel`) gives each point one warp,
+//     which reads the point's row of the table 128 centroids a step and
+//     adds, in ascending s, each member's m, mult * qc[s] and mult, the
+//     lanes owning the channels. The member rows add 8 Fj bytes a member
+//     (written once, read once) and the table 2 S bytes a point to what
+//     K9 moves; the zeroed f32 workspace of H, Mq and cnt and its
+//     read-modify-write atomics are gone.
 //
 // Shared memory (bytes; R = ct * K rows, pad = 8 bf16 a row):
 //   stage  = R (Fj + 8) 2  [z_j, then dy_j]
 //          + R (Fj1 + 8) 2 [z_j1, at the top then dz]
 //          + top ? 4 ct Fj1 [pooled | dpooled] : R (Fj1 + 8) 2 [dy_j1, dz]
-//          + 2 ct Fj [qc]
 //   fixed  = R (Fj + 8) 2 [h_j] + (W ? Fj (Fj1 + 8) 2 : 0) + 16 Fj
 //          [a, c, mu, r of layer j] + 24 Fj1 [layer j+1's pack] + 64 Fj
 //          [the whole-grid column sums] + 4 ct Fj1 [ties] + 2048 [the
@@ -84,19 +97,19 @@
 // a tile can hold with two stages and W resident, a third stage if it
 // fits; a shape too wide for that runs one stage (the next tile's loads
 // then overlap the epilogue only), and leaves W in L2 if it must:
-//   K8 top   K  32  32<- 64  ct 4  3 stages  W       112,640
-//            K  64  64<-128  ct 2  3 stages  W       211,456
-//            K 128  96<-128  ct 1  2 stages  W       191,104
-//            K  64 128<-256  ct 1  2 stages  W       209,920
-//            K 128 128<-256  ct 1  1 stage   W       226,304
-//   K9       K  32  32<- 32  ct 4  3 stages  W       112,384
-//            K  64  64<- 64  ct 2  3 stages  W       204,288
-//            K 128  64<- 96  ct 1  2 stages  W       185,984
-//            K  64 128<-128  ct 1  3 stages  W       226,048
-//            K 128 128<-128  ct 1  1 stage   W       190,976
-//   corners  K  16  16<- 16  ct 8  3 stages  W        67,968
-//            K 128 128<-256  ct 1  1 stage   W in L2  225,280
-//            K 128 256<-128  ct 1  1 stage   W in L2  232,192
+//   K8 top   K  32  32<- 64  ct 4  3 stages  W       111,872
+//            K  64  64<-128  ct 2  3 stages  W       210,688
+//            K 128  96<-128  ct 1  2 stages  W       190,720
+//            K  64 128<-256  ct 1  2 stages  W       209,408
+//            K 128 128<-256  ct 1  1 stage   W       226,048
+//   K9       K  32  32<- 32  ct 4  3 stages  W       111,616
+//            K  64  64<- 64  ct 2  3 stages  W       203,520
+//            K 128  64<- 96  ct 1  2 stages  W       185,728
+//            K  64 128<-128  ct 1  3 stages  W       225,280
+//            K 128 128<-128  ct 1  1 stage   W       190,720
+//   corners  K  16  16<- 16  ct 8  3 stages  W        67,200
+//            K 128 128<-256  ct 1  1 stage   W in L2  225,024
+//            K 128 256<-128  ct 1  1 stage   W in L2  231,680
 // of the 232,448 a block may have (the corners below a stored dy, their
 // larger form). One block of 512 threads runs per SM, at 128 registers a
 // thread. Registers decide the speed of the passes: beside this much
@@ -109,11 +122,9 @@
 // fixed, a block walks its tiles in order, each accumulator has one owner
 // (a thread's registers, or one thread's slot of shared memory), row
 // groups and warps are added in index order and the blocks' partials in
-// block order. Tie counts are integer atomics in shared memory. Only K9's
-// scatter uses floating-point atomics, into a zeroed f32 workspace: cnt
-// is exact (small integers), H and Mq are exact on
-// integer-valued inputs and otherwise within one ulp of the sum of the
-// terms' magnitudes. TMA, wgmma and two blocks per SM are later work.
+// block order. Tie counts are integer atomics in shared memory. No
+// floating-point atomics anywhere: K9's sums onto the points have one
+// owner each (above). TMA, wgmma and two blocks per SM are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -185,12 +196,13 @@ struct BwdArgs {
   const bf16* wb;       // bf16(W_j) [Fj, Fj1]
   const float* cent;    // step 0: [C, 3]
   const float* xyz;     // step 0: [B, N, 3]
-  const bf16* qc;       // step 0: [C, Fj]
   bf16* dy_j;           // [C, K, Fj], not at step 0
   float* partials;      // [grid, Fj*Fj1 + 2 Fj + Fj1]: dW | sdy | sdyx | db
-  float* scat;          // step 0: zeroed H, Mq [B, N, Fj] | cnt [B, N]
+  float* msum;          // step 0: [C, K, Fj], row (c, r - 1) for r <= eff
+  int* eff;             // step 0: [C]
+  unsigned char* rank;  // step 0: zeroed [B, N, Sp], the rank r at (n, s)
   float* per_cent;      // step 0: [2, C, Fj]: Sdy | Sz
-  int ncent, S, N, K, Fj, Fj1;
+  int ncent, S, Sp, N, K, Fj, Fj1;
   float r2;
   int train, top;
   int ct, stages, wsmem;  // the launcher's plan
@@ -199,7 +211,7 @@ struct BwdArgs {
 // Byte offsets of the shared-memory buffers (the table in the header).
 struct Layout {
   size_t tz, t1;               // one [R, Fj] and one [R, Fj1] padded tile
-  size_t a1, x, q, stage;  // within a stage: z_j at 0, z_j1, dy_j1 | pl, qc
+  size_t a1, x, stage;  // within a stage: z_j at 0, z_j1, dy_j1 | pl
   size_t h, w, pk, pk1, cs, ties, colred, sel, misc, total;
 };
 
@@ -211,8 +223,7 @@ __host__ __device__ inline Layout bwd_layout(int K, int Fj, int Fj1, int ct,
   L.t1 = R * (Fj1 + kPad) * 2;
   L.a1 = L.tz;
   L.x = L.tz + L.t1;
-  L.q = L.x + (top ? (size_t)4 * ct * Fj1 : L.t1);
-  L.stage = L.q + (size_t)2 * ct * Fj;
+  L.stage = L.x + (top ? (size_t)4 * ct * Fj1 : L.t1);
   L.h = L.stage * stages;
   L.w = L.h + L.tz;
   L.pk = L.w + (wsmem ? (size_t)Fj * (Fj1 + kPad) * 2 : 0);
@@ -230,19 +241,6 @@ __device__ __forceinline__ void copy_flat(bf16* dst, const bf16* src,
                                           int elems) {
   for (int i = threadIdx.x * 8; i < elems; i += kThreads * 8)
     cp16(dst + i, src + i);
-}
-
-// Four f32 atomic adds to 16-byte aligned device memory, as one request
-// where the toolkit has the vector form.
-__device__ __forceinline__ void add4(float* at, float4 v) {
-#if CUDART_VERSION >= 12010
-  atomicAdd(reinterpret_cast<float4*>(at), v);
-#else
-  atomicAdd(at, v.x);
-  atomicAdd(at + 1, v.y);
-  atomicAdd(at + 2, v.z);
-  atomicAdd(at + 3, v.w);
-#endif
 }
 
 // Four channels of a row (8-byte aligned) as two packed pairs.
@@ -397,9 +395,6 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
     if (T >= ntiles) return;
     const int c0 = T * ct, rows = min(ct, p.ncent - c0) * K;
     copy_rows<kThreads>(stage_ptr(s), ldj, p.z_j + (size_t)c0 * K * Fj, rows, Fj);
-    if (kStep0)
-      copy_flat(reinterpret_cast<bf16*>(smem + L.stage * s + L.q),
-                p.qc + (size_t)c0 * Fj, rows / K * Fj);
   };
 
   if (wsmem) copy_rows<kThreads>(wsm, ld1, p.wb, Fj, Fj1);
@@ -423,7 +418,6 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
     bf16* dzs = top ? z1 : xb;
     const bf16* pls = xb;                                // [ct][Fj1]
     const bf16* dps = xb + ct * Fj1;                     // [ct][Fj1]
-    const bf16* qcs = reinterpret_cast<const bf16*>(st + L.q);  // [ct][Fj]
 
     // K9: the warps of centroid sci share its ball query; the centroid is
     // loaded ahead of the wait.
@@ -771,11 +765,12 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
         }
       }
     } else {
-      // scatter: the member of rank j + 1 fills slots j, j + eff, ...; a
-      // lane takes four channels of one member, Fj / 4 lanes a member.
+      // members: the member of rank j + 1 fills slots j, j + eff, ...; its
+      // slot sum goes to row (c, j) of the member buffer and j + 1 to its
+      // point's row of the rank table. A lane takes four channels of one
+      // member, Fj / 4 lanes a member.
       const int lpm = Fj / 4, mpw = lpm < 32 ? 32 / lpm : 1;
       const int sub = lpm < 32 ? lane / lpm : 0, f0 = (lane - sub * lpm) * 4;
-      const size_t plane = (size_t)(p.ncent / p.S) * p.N * Fj;
       if (sub < mpw) {
         // member m = ci * K + j, stepped without a division
         const int step = kWarps * mpw;
@@ -784,13 +779,12 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
         for (int m = warp * mpw + sub; m < rows; m += step) {
           const int eff = effs[ci];
           if (j < eff) {
-            const size_t pt = (size_t)brow[ci] * p.N + sel[ci * K + j];
-            float mult = 0.0f;  // the member's slots: (K - (j + 1)) / eff + 1
+            const int c = c0 + ci;
+            float* mrow = p.msum + ((size_t)c * K + j) * Fj;
             for (int f = f0; f < Fj; f += 128) {
               const bf16* col = zj + (size_t)ci * K * ldj + f;
               float4 sum = {0.0f, 0.0f, 0.0f, 0.0f};
-              int slots = 0;
-              for (int k = j; k < K; k += eff, ++slots) {
+              for (int k = j; k < K; k += eff) {
                 const uint2 raw = lds8(col + k * ldj);
                 const float2 u = unpack2(raw.x), v = unpack2(raw.y);
                 sum.x = __fadd_rn(sum.x, u.x);
@@ -798,20 +792,16 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
                 sum.z = __fadd_rn(sum.z, v.x);
                 sum.w = __fadd_rn(sum.w, v.y);
               }
-              mult = (float)slots;
-              const uint2 qraw = lds8(qcs + ci * Fj + f);
-              const float2 q0 = unpack2(qraw.x), q1 = unpack2(qraw.y);
-              float* hrow = p.scat + pt * Fj + f;
-              add4(hrow, sum);
-              add4(hrow + plane,
-                   make_float4(__fmul_rn(mult, q0.x), __fmul_rn(mult, q0.y),
-                               __fmul_rn(mult, q1.x), __fmul_rn(mult, q1.y)));
+              *reinterpret_cast<float4*>(mrow + f) = sum;
             }
-            if (f0 == 0) atomicAdd(p.scat + 2 * plane + pt, mult);
+            if (f0 == 0)
+              p.rank[((size_t)brow[ci] * p.N + sel[ci * K + j]) * p.Sp +
+                     (c - brow[ci] * p.S)] = (unsigned char)(j + 1);
           }
           for (j += step; j >= K; j -= K) ++ci;
         }
       }
+      if (tid < nval) p.eff[c0 + tid] = effs[tid];
       col_sums_part(zj, ldj, K, Fj, nval * Fj, colred,
                     p.per_cent + (size_t)c0 * Fj);
     }
@@ -864,6 +854,70 @@ __global__ void __launch_bounds__(kThreads, 1) sa_bwd_step_kernel(BwdArgs p) {
   }
 }
 
+// K9's second launch: one warp a point (b, n) owns H[b, n, :], Mq[b, n,
+// :] and cnt[b, n]. Lane l reads bytes 4 l .. 4 l + 3 of a 128-centroid
+// step of the point's row of the rank table; the lanes that hold a rank
+// are walked in ascending order (a ballot), and each of their centroids
+// s, in ascending s, adds its member row's m, mult * qc[s] (exact: an
+// integer of at most 8 bits times a bf16) and mult into f32 registers,
+// lane l owning channels l, l + 32, ...
+constexpr int kGatherWarps = 8;
+constexpr int kGatherF = t3d::kMaxF / 32;
+
+__global__ void __launch_bounds__(kGatherWarps * 32)
+    sa_bwd_gather_kernel(const float* __restrict__ msum,
+                         const int* __restrict__ effs,
+                         const unsigned char* __restrict__ rank,
+                         const bf16* __restrict__ qc, float* __restrict__ out,
+                         int B, int S, int Sp, int N, int K, int Fj) {
+  const int lane = threadIdx.x & 31;
+  const int pt = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
+  if (pt >= B * N) return;
+  const int b = pt / N;
+  const unsigned char* row = rank + (size_t)pt * Sp;
+  float h[kGatherF], q[kGatherF];
+#pragma unroll
+  for (int i = 0; i < kGatherF; ++i) h[i] = q[i] = 0.0f;
+  float cnt = 0.0f;
+  for (int s0 = 0; s0 < Sp; s0 += 128) {
+    const int s4 = s0 + 4 * lane;
+    const uint32_t w =
+        s4 < Sp ? *reinterpret_cast<const uint32_t*>(row + s4) : 0u;
+    for (unsigned held = __ballot_sync(t3d::kFullMask, w != 0u); held;
+         held &= held - 1) {
+      const int L = __ffs(held) - 1;
+      const uint32_t wl = __shfl_sync(t3d::kFullMask, w, L);
+      for (int e = 0; e < 4; ++e) {
+        const int r = (wl >> (8 * e)) & 0xff;
+        if (r == 0) continue;
+        const int c = b * S + s0 + 4 * L + e;
+        const float mult = (float)((K - r) / effs[c] + 1);
+        const float* m = msum + ((size_t)c * K + r - 1) * Fj;
+        const bf16* qr = qc + (size_t)c * Fj;
+#pragma unroll
+        for (int i = 0; i < kGatherF; ++i) {
+          const int f = lane + 32 * i;
+          if (f < Fj) {
+            h[i] = __fadd_rn(h[i], m[f]);
+            q[i] = __fadd_rn(q[i], __fmul_rn(mult, tof(qr[f])));
+          }
+        }
+        cnt = __fadd_rn(cnt, mult);
+      }
+    }
+  }
+  const size_t plane = (size_t)B * N * Fj;
+#pragma unroll
+  for (int i = 0; i < kGatherF; ++i) {
+    const int f = lane + 32 * i;
+    if (f < Fj) {
+      out[(size_t)pt * Fj + f] = h[i];
+      out[plane + (size_t)pt * Fj + f] = q[i];
+    }
+  }
+  if (lane == 0) out[2 * plane + pt] = cnt;
+}
+
 bool bad_tile(int k, int f) {
   return k < 16 || k > t3d::kMaxK || k % 16 || f < 16 || f > t3d::kMaxF ||
          f % 16;
@@ -886,15 +940,19 @@ extern "C" int t3d_sa_bwd_clocks(unsigned long long* out) {
 // f32 [grid, Fj*Fj1 + 2 Fj + Fj1] scratch and `sums` receives dW_j
 // [Fj, Fj1] | sum dy_j | sum dy_j * xhat_j | db_j. `ct` centroids a tile,
 // `stages` ring stages and `wsmem` (W_j in shared memory) are the
-// launcher's plan. Every tensor is 16-byte aligned. See BwdArgs for the
-// other buffers; those a form does not use may be null.
+// launcher's plan. Every tensor is 16-byte aligned. K9 also takes the
+// scratch `msum` (f32 [B S, K, Fj]), `eff` (int [B S]) and `rank` (bytes
+// [B, N, sp], sp = s rounded up to 4, zeroed), and writes H, Mq [B, N,
+// Fj] | cnt [B, N] to `scat` (f32) in a second launch. See BwdArgs for
+// the other buffers; those a form does not use may be null.
 extern "C" int t3d_sa_bwd_step(
     const void* z_j, const void* z_j1, const void* dy_j1, const void* pooled,
     const void* dpooled, const float* pack_j, const float* pack_j1,
     const void* wb, const float* cent, const float* xyz, const void* qc,
-    void* dy_j, float* partials, float* sums, float* scat, float* per_cent,
-    int b, int s, int n, int k, int fj, int fj1, float r2, int train, int top,
-    int step0, int ct, int stages, int wsmem, int grid, void* stream) {
+    void* dy_j, float* partials, float* sums, float* msum, int* eff,
+    unsigned char* rank, float* scat, float* per_cent, int b, int s, int n,
+    int k, int fj, int fj1, float r2, int train, int top, int step0, int ct,
+    int stages, int wsmem, int grid, void* stream) {
   if (b < 1 || s < 1 || grid < 1 || bad_tile(k, fj) || bad_tile(k, fj1) ||
       (fj / 16) * (fj1 / 16) > kDwFrags * kWarps)
     return (int)cudaErrorInvalidValue;
@@ -902,7 +960,9 @@ extern "C" int t3d_sa_bwd_step(
       stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   if (top ? (!pooled || !dpooled) : !dy_j1) return (int)cudaErrorInvalidValue;
-  if (step0 ? (!cent || !xyz || !qc || !scat || !per_cent || n < 1) : !dy_j)
+  if (step0 ? (!cent || !xyz || !qc || !msum || !eff || !rank || !scat ||
+               !per_cent || n < 1)
+            : !dy_j)
     return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_layout(k, fj, fj1, ct, stages, wsmem, top).total;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -917,13 +977,15 @@ extern "C" int t3d_sa_bwd_step(
   a.wb = static_cast<const bf16*>(wb);
   a.cent = cent;
   a.xyz = xyz;
-  a.qc = static_cast<const bf16*>(qc);
   a.dy_j = static_cast<bf16*>(dy_j);
   a.partials = partials;
-  a.scat = scat;
+  a.msum = msum;
+  a.eff = eff;
+  a.rank = rank;
   a.per_cent = per_cent;
   a.ncent = b * s;
   a.S = s;
+  a.Sp = (s + 3) & ~3;
   a.N = n;
   a.K = k;
   a.Fj = fj;
@@ -953,6 +1015,15 @@ extern "C" int t3d_sa_bwd_step(
   kern<<<grid, kThreads, smem, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (step0) {
+    const int pts = b * n;
+    sa_bwd_gather_kernel<<<(pts + kGatherWarps - 1) / kGatherWarps,
+                           kGatherWarps * 32, 0, st>>>(
+        msum, eff, rank, static_cast<const bf16*>(qc), scat, b, s, a.Sp, n,
+        k, fj);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)t3d::reduce_partials(partials, sums, grid,
                                    fj * fj1 + 2 * fj + fj1, st);
 }

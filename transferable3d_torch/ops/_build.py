@@ -80,7 +80,7 @@ _SIGNATURES = {
     # xyz, qc, dy_j, partials, sums, scatter workspace, per-centroid
     # sums, B, S, N, K, F_j, F_j1, r2, train, top, step0, centroids per
     # tile, stages, W in shared memory, grid, stream
-    "t3d_sa_bwd_step": [_P] * 16 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
+    "t3d_sa_bwd_step": [_P] * 19 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     # pts, inside (bytes), u, perm, sampled, idx, count, F, MB, N, C,
     # npoints, blocks a frustum, words a block, mask bytes a load, stream
     "t3d_fetch_select": [_P] * 7 + [_I] * 8 + [_P],

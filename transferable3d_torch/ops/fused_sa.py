@@ -47,8 +47,7 @@ import torch
 
 from transferable3d_torch.ops import _build
 from transferable3d_torch.ops.grouping import (direct_sqdist, flat_row_gather,
-                                               radius_sq, scatter_rows,
-                                               select_slots)
+                                               radius_sq, select_slots)
 
 # csrc/sa_infer.cu: threads per block of the f32 kernel, max chain depth,
 # and the shared memory one block may use on an H100 (227 KB); the
@@ -359,34 +358,73 @@ def sa_bwd_sum_magnitudes(train: bool, top: bool, z_j, z_j1, dy_src,
     return (dy_j.sum(_ROWS), (dy_j * xhat_j).sum(_ROWS), dw, dz1.sum(_ROWS))
 
 
+def step0_table_width(s: int) -> int:
+    """Bytes of a point's row of K9's rank table: S rounded up to 4."""
+    return -(-s // 4) * 4
+
+
+def step0_scratch_bytes(cent, xyz, r: float, k: int, f0: int) -> int:
+    """Bytes K9 moves through its scratch at these balls, beyond its
+    inputs and outputs: each member's f32 slot sums written and read,
+    the rank table zeroed, its members' bytes written and the table
+    read, eff written and read."""
+    b, s, n = cent.shape[0], cent.shape[1], xyz.shape[1]
+    members = int(torch.clamp(_slots(cent, xyz, r, k)[1], 1, k).sum())
+    return (2 * members * f0 * 4 + 2 * b * n * step0_table_width(s)
+            + members + 2 * b * s * 4)
+
+
+def step0_scatter_plain(idx, count, dy0, qc, n: int):
+    """K9's sums onto the points, in the kernel's order: the member of
+    1-based rank r <= eff = clip(count, 1, K) of centroid s fills slots r
+    - 1, r - 1 + eff, ...; its slot sum m (f32 from +0, the slots in
+    ascending order), mult = (K - r) // eff + 1 and mult * qc[s] are
+    added onto its point, in f32 from +0, in ascending s. idx [B, S, K]
+    (slot k takes member k mod eff), count [B, S], dy0 [B, S, K, F0],
+    qc [B, S, F0]. Returns (H [B, N, F0], Mq [B, N, F0], cnt [B, 1, N]),
+    f32. On the CPU `index_add_` adds in the order of its rows, so this
+    is the kernel's sequence; on CUDA it adds with atomics."""
+    b, s, k, f0 = dy0.shape
+    dev = dy0.device
+    eff = torch.clamp(count, 1, k).long()
+    rank = torch.arange(k, device=dev)
+    # m[b, s, j]: slot k adds to member k mod eff, slots in ascending k,
+    # one add a member at a time
+    m = torch.zeros(b * s, k, f0, dtype=torch.float32, device=dev)
+    rows = torch.arange(b * s, device=dev)
+    member = (rank[None, :] % eff.reshape(-1, 1))
+    dyf = dy0.float().reshape(b * s, k, f0)
+    for slot in range(k):
+        at = member[:, slot]
+        m[rows, at] = m[rows, at] + dyf[:, slot]
+    mult = torch.where(rank < eff[..., None], (k - 1 - rank) // eff[..., None]
+                       + 1, 0).float()
+    flat = (idx.long() + torch.arange(b, device=dev)[:, None, None]
+            * n).reshape(-1)
+    h_acc = torch.zeros(b * n, f0, device=dev).index_add_(
+        0, flat, m.reshape(-1, f0))
+    cnt = torch.zeros(b * n, device=dev).index_add_(0, flat,
+                                                     mult.reshape(-1))
+    mq = torch.zeros(b * n, f0, device=dev).index_add_(
+        0, flat, (mult[..., None] * qc.float()[:, :, None, :])
+        .reshape(-1, f0))
+    return h_acc.reshape(b, n, f0), mq.reshape(b, n, f0), cnt.reshape(b, 1, n)
+
+
 def sa_bwd_step0_plain(train: bool, top: bool, z_j, z_j1, dy_src, cent, xyz,
                        qc, pack_j, pack_j1, w_j, radius: float):
     """Plain twin of K9 (`_bwd_step0_kernel`): K8 at j = 0 without dy_0;
     instead H = the slots' dy_0 summed onto their points, cnt = slots per
-    point, Mq = sum over centroids of (slots of the point) * qc, and per
-    centroid sum_k dy_0 and sum_k z_1. Returns (sum dy_0, sum dy_0 *
-    xhat_0, dW_0, db_0, H [B,N,F0], Mq [B,N,F0], cnt [B,1,N],
-    Sdy [B,S,F0], Sz [B,S,F0]), all f32."""
+    point, Mq = sum over centroids of (slots of the point) * qc, in the
+    kernel's order (`step0_scatter_plain`), and per centroid sum_k dy_0
+    and sum_k z_1. Returns (sum dy_0, sum dy_0 * xhat_0, dW_0, db_0, H
+    [B,N,F0], Mq [B,N,F0], cnt [B,1,N], Sdy [B,S,F0], Sz [B,S,F0]), all
+    f32."""
     dy_j, sdy, sdyx, dw, db = sa_bwd_step_plain(
         train, top, z_j, z_j1, dy_src, pack_j, pack_j1, w_j)
-    b, s, k, f0 = z_j.shape
-    n = xyz.shape[1]
-    idx, count = _slots(cent, xyz, radius, k)
-    h_acc = scatter_rows(idx, dy_j, n, torch.float32)
-    # The member with 1-based rank r <= eff fills floor((K - r) / eff) + 1
-    # of the K cyclic slots; its first slot is r - 1.
-    eff = torch.clamp(count, 1, k)[..., None].long()
-    slot = torch.arange(k, device=idx.device)
-    mult = torch.where(slot < eff, (k - 1 - slot) // eff + 1, 0).float()
-    flat = (idx + torch.arange(b, device=idx.device)[:, None, None]
-            * n).reshape(-1)
-    cnt = torch.zeros(b * n, device=idx.device).index_add_(
-        0, flat, mult.reshape(-1))
-    mq = torch.zeros(b * n, f0, device=idx.device).index_add_(
-        0, flat, (mult[..., None] * qc.float()[:, :, None, :])
-        .reshape(-1, f0))
-    return (sdy, sdyx, dw, db, h_acc, mq.reshape(b, n, f0),
-            cnt.reshape(b, 1, n), dy_j.float().sum(dim=2),
+    idx, count = _slots(cent, xyz, radius, z_j.shape[2])
+    h_acc, mq, cnt = step0_scatter_plain(idx, count, dy_j, qc, xyz.shape[1])
+    return (sdy, sdyx, dw, db, h_acc, mq, cnt, dy_j.float().sum(dim=2),
             z_j.float().sum(dim=2))
 
 
@@ -537,14 +575,14 @@ class BwdPlan(NamedTuple):
 def sa_bwd_layout_bytes(k: int, f_j: int, f_j1: int, ct: int, stages: int,
                         w_smem: bool, top: bool) -> int:
     """Dynamic shared memory of one K8/K9 block (mirrors `bwd_layout` of
-    sa_train_bwd.cu). A stage: the z_j and z_j1 tiles, either dy_j1's
-    tile or pooled and dpooled, and qc's rows. Fixed: the h_j tile, W_j,
+    sa_train_bwd.cu). A stage: the z_j and z_j1 tiles, and either dy_j1's
+    tile or pooled and dpooled. Fixed: the h_j tile, W_j,
     four rows of layer j's pack and the six of layer j+1's, the
     whole-grid column sums, the tie counts, the per-centroid column
     sums' shares, the members, the ball query's scratch."""
     rows = ct * k
     tz, t1 = rows * (f_j + _PAD) * 2, rows * (f_j1 + _PAD) * 2
-    stage = tz + t1 + (4 * ct * f_j1 if top else t1) + 2 * ct * f_j
+    stage = tz + t1 + (4 * ct * f_j1 if top else t1)
     return (stages * stage + tz
             + (f_j * (f_j1 + _PAD) * 2 if w_smem else 0) + 4 * f_j * 4
             + 6 * f_j1 * 4 + 2 * _BWD_MAX_WM * f_j * 4 + 4 * ct * f_j1
@@ -763,10 +801,15 @@ def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
     sums = torch.empty(nsum, **f32)
     dy_j = None if step0 else torch.empty(b, s, k, f_j, dtype=_BF,
                                           device=dev)
+    members = (None,) * 3
     if step0:
-        acc = torch.zeros(b * n * (2 * f_j + 1), **f32)  # H | Mq | cnt
+        acc = torch.empty(b * n * (2 * f_j + 1), **f32)  # H | Mq | cnt
         per_cent = torch.empty(2, b, s, f_j, **f32)
-        scat = acc.data_ptr()
+        # the members' slot sums, eff, and the zeroed rank table
+        members = (torch.empty(b * s * k * f_j, **f32),
+                   torch.empty(b * s, dtype=torch.int32, device=dev),
+                   torch.zeros(b * n * step0_table_width(s), dtype=torch.uint8,
+                               device=dev))
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         code = lib.t3d_sa_bwd_step(
@@ -776,7 +819,8 @@ def _bwd_launch(what, step0, train, top, z_j, z_j1, dy_src, pack_j,
             cent.data_ptr() if step0 else None,
             xyz.data_ptr() if step0 else None,
             qc.data_ptr() if step0 else None, ptr(dy_j), part.data_ptr(),
-            sums.data_ptr(), scat if step0 else None,
+            sums.data_ptr(), *(ptr(t) for t in members),
+            acc.data_ptr() if step0 else None,
             per_cent.data_ptr() if step0 else None, b, s, n, k, f_j, f_j1,
             radius_sq(radius) if step0 else 0.0, int(train), int(top),
             int(step0), plan.ct, plan.stages, int(plan.w_smem), grid,
