@@ -228,6 +228,25 @@ depth to `STUDY_BOXPC_EPOCHS` BoxPC and `STUDY_EPOCHS` phase-B epochs:
      the same bits and equal to the twin's order over its own dy_0, and
      on one eval step's K1 and K2; then the runs' time (the copy-out of
      that step's arguments included) and peak memory.
+The tools (`ops/grouping.knn_point`, `models/pointnet2.sample_and_group`,
+`utils/profiling`, `utils/viz`):
+ 29. `sample_and_group` at each scale of v2's SA1 (B=128 frustums of
+     N=1024 points with one feature channel, 128 centroids, r 0.2 / 0.4 /
+     0.8, K 32 / 64 / 128; the points centred on their frustum's mean,
+     within 8.9 m and on a 1/256 grid, so that every distance is exact on
+     both devices) with the counters zeroed just before each call: one K1
+     launch and no other kernel, the centroids and groups equal to the
+     same call on CPU copies; `knn_point` (k = 16) on the card equal to
+     the CPU's, indices and distances; `profiling.trace` around one
+     predict step (K1 4 and K2 8 launches): the written Chrome trace
+     names K1's and K2's kernels; `profiling.device_ms` of the predict
+     step above 0 and at most the wall time, on the host's clock, of the
+     3 calls that its CUDA events bracket (its untimed first call left
+     out); `viz.export_html` of phase 6's first detection on its
+     frustum's points, and `viz.draw_frustum` of it where matplotlib is
+     installed (else a line says it was not run), written under a
+     temporary directory. `tf1_import` is not run: it reads checkpoints
+     through `tensorflow`.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks; K9's member buffer and
@@ -244,6 +263,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -452,9 +472,11 @@ def _check_sa_infer(phase, a):
     return err
 
 
-def serve(args, dev, card: str):
+def serve(args, dev, card: str, keep: dict):
     """Phases 3-7 (serving); runs under torch.no_grad(). Returns the
-    kernels' JSON entries for K1 and K2."""
+    kernels' JSON entries for K1 and K2, and leaves in `keep` what phase
+    29 reuses: the predict step, its batch, the frustums and the first
+    detection."""
     from transferable3d_torch.core import bins
     from transferable3d_torch.models import pointnet2, registry
     from transferable3d_torch.ops import _build, fused_sa, sampling
@@ -571,6 +593,7 @@ def serve(args, dev, card: str):
     print(f"phase 6 run_inference: {len(dets)} detections in {wall:.3f} s, "
           f"finite {ok}", flush=True)
     _check(len(dets) == 4 * B and ok, "run_inference output not finite")
+    keep.update(predict=predict, batch=batch, data=data, det=dets[0])
 
     # 7. times, and the least time the card could take for the same work:
     # every input read once and every output written once; FPS does about
@@ -3483,6 +3506,149 @@ def _study(args, dev, card: str):
     tmp.cleanup()
 
 
+def _trace_kernels(log_dir: str) -> list:
+    """Names of the device kernels in the one Chrome trace under
+    `log_dir`."""
+    import glob
+
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    _check(len(files) == 1, f"phase 29: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+def tools(args, dev, card: str, keep: dict):
+    """Phase 29: `sample_and_group` and `knn_point` on the card against the
+    same calls on the CPU, `profiling.trace` and `device_ms` around a
+    predict step, and `viz` on phase 6's first detection."""
+    import tempfile
+
+    from transferable3d_torch.core.geometry import rotate_points_y_np
+    from transferable3d_torch.models import pointnet2
+    from transferable3d_torch.ops import _build, grouping
+    from transferable3d_torch.utils import profiling, viz
+
+    # v2's SA1 shape on frustums whose distances are exact on both devices
+    pts = keep["batch"]["points"].astype(np.float64)
+    pts[..., :3] = np.clip(pts[..., :3] - pts[..., :3].mean(1, keepdims=True),
+                           -8.9, 8.9)
+    pts = (np.round(pts * 256) / 256).astype(np.float32)
+    xyz_h, feats_h = torch.from_numpy(pts[..., :3]), torch.from_numpy(
+        pts[..., 3:])
+    xyz, feats = xyz_h.to(dev), feats_h.to(dev)
+    for r, k in zip((0.2, 0.4, 0.8), (32, 64, 128)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        new_xyz, grouped = pointnet2.sample_and_group(128, r, k, xyz, feats)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        _expect_launches(launches, {"fps": 1})
+        ref_xyz, ref_grouped = pointnet2.sample_and_group(128, r, k, xyz_h,
+                                                          feats_h)
+        same = (torch.equal(new_xyz.cpu(), ref_xyz)
+                and torch.equal(grouped.cpu(), ref_grouped))
+        print(f"phase 29 sample_and_group S=128 r={r} K={k}: grouped "
+              f"{tuple(grouped.shape)}, launches "
+              f"{ {n: v for n, v in launches.items() if v} }, equal to the "
+              f"CPU's {same}", flush=True)
+        _check(same, "phase 29: sample_and_group on the card differs from "
+               "the CPU's")
+    idx, d2 = grouping.knn_point(new_xyz, xyz, 0.0, 16)
+    ref_idx, ref_d2 = grouping.knn_point(ref_xyz, xyz_h, 0.0, 16)
+    ties = float((ref_d2[..., 1:] == ref_d2[..., :-1]).float().mean())
+    same = torch.equal(idx.cpu(), ref_idx) and torch.equal(d2.cpu(), ref_d2)
+    print(f"phase 29 knn_point k=16: indices {tuple(idx.shape)} "
+          f"{idx.dtype}, neighbours tied with the next {ties:.4f}, equal to "
+          f"the CPU's {same}", flush=True)
+    _check(idx.dtype == torch.int32 and same,
+           "phase 29: knn_point on the card differs from the CPU's")
+
+    # profiling around the predict step
+    predict = keep["predict"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in keep["batch"].items()}
+    with tempfile.TemporaryDirectory(prefix="t3d_tools_") as tmp:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with profiling.trace(os.path.join(tmp, "trace")):
+            predict(batch)
+            torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        names = _trace_kernels(os.path.join(tmp, "trace"))
+    _expect_launches(launches, {"fps": 4, "sa_infer": 8})
+    k1 = [n for n in names if "fps_kernel" in n]
+    k2 = [n for n in names if "sa_infer_" in n and "_kernel" in n]
+    print(f"phase 29 trace of a predict step: {len(names)} kernel names, "
+          f"K1 {k1}, K2 {k2}, launches "
+          f"{ {n: v for n, v in launches.items() if v} }", flush=True)
+    _check(k1 and k2, "phase 29: the trace does not name K1 and K2")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    stamps = []
+
+    def stamped(b):
+        stamps.append(time.perf_counter())
+        return predict(b)
+
+    torch.cuda.synchronize()
+    dms = profiling.device_ms(stamped, batch, steps=3)
+    # the host's clock from the first timed call to device_ms's return,
+    # its untimed first call left out: the wall time of the 3 calls that
+    # the CUDA events bracket
+    wall = (time.perf_counter() - stamps[1]) * 1e3 / 3
+    print(f"phase 29 device_ms of the predict step: {dms:.3f} ms (CUDA "
+          f"events over 3 calls), the wall time of those 3 calls "
+          f"{wall:.3f} ms a call, a synchronised step alone "
+          f"{np.median(walls):.3f} ms (median of 5) {card}", flush=True)
+    _check(0.0 < dms <= wall, "phase 29: device_ms outside (0, wall]")
+
+    # viz of phase 6's first detection, in the camera frame
+    det, data = keep["det"], keep["data"]
+    frustum = rotate_points_y_np(
+        data.points[0][None, :, :3],
+        np.float32(-data.records[0].frustum_angle))[0]
+    with tempfile.TemporaryDirectory(prefix="t3d_viz_") as tmp:
+        page = viz.export_html(
+            frustum, boxes=[{"center": det.center, "size": det.size,
+                             "heading": det.heading,
+                             "label": det.classname}],
+            path=os.path.join(tmp, "det.html"), title=det.frame_id)
+        with open(page) as f:
+            data_js = json.loads(f.read().split("const DATA = ")[1]
+                                 .split(";\n")[0])
+        print(f"phase 29 viz: export_html {len(data_js['points'])} points "
+              f"and {len(data_js['boxes'])} box labelled "
+              f"{data_js['boxes'][0]['label']!r}", flush=True)
+        _check(len(data_js["points"]) == N
+               and data_js["boxes"][0]["label"] == det.classname,
+               "phase 29: export_html wrote no viewer of the detection")
+        if importlib.util.find_spec("matplotlib") is None:
+            print("phase 29 viz: draw_frustum not run on the card: it draws "
+                  "with matplotlib, which this machine does not have",
+                  flush=True)
+        else:
+            png = viz.draw_frustum(
+                frustum, pred_box=(det.center, det.size, det.heading),
+                path=os.path.join(tmp, "det.png"),
+                title=f"{det.frame_id} ({det.classname})")
+            with open(png, "rb") as f:
+                png_ok = f.read(8) == b"\x89PNG\r\n\x1a\n"
+            png_bytes = os.path.getsize(png)
+            print(f"phase 29 viz: draw_frustum {png_bytes} bytes",
+                  flush=True)
+            _check(png_ok and png_bytes > 1000,
+                   "phase 29: draw_frustum wrote no figure")
+    print("phase 29 tf1_import: not run on the card: it reads TF1 "
+          "checkpoints through tensorflow, which this machine need not "
+          "have", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3521,8 +3687,9 @@ def main() -> None:
           f"{'ran' if _build.build_seconds is not None else 'cached'})",
           flush=True)
 
+    keep = {}
     with torch.no_grad():
-        kernels = serve(args, dev, card)
+        kernels = serve(args, dev, card, keep)
     unfused_kernels, ctx = train(args, dev, card)
     kernels += unfused_kernels + train_fused(args, dev, card, ctx)
     kernels += e2e(args, dev, card, ctx)
@@ -3530,6 +3697,7 @@ def main() -> None:
     transfer(args, dev, card)
     repro(args, dev, card)
     study(args, dev, card)
+    tools(args, dev, card, keep)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

@@ -152,7 +152,7 @@ def _run_main(module, argv, monkeypatch):
     module.main()
 
 
-def test_kitti_prep_writes_the_jax_pickles(tmp_path, monkeypatch):
+def test_kitti_prep_writes_the_jax_pickles(tmp_path, monkeypatch, capsys):
     frames = _make_fixture(str(tmp_path / "kitti"),
                            np.random.RandomState(4), n_frames=2)
     det_file = tmp_path / "dets.txt"
@@ -179,9 +179,14 @@ def test_kitti_prep_writes_the_jax_pickles(tmp_path, monkeypatch):
                 == (tmp_path / "j" / name).read_bytes()), name
     assert len(tpio.load_records(str(tmp_path / "t" / "train.pkl"),
                                  cfg=tbins.KITTI)) == 4
-    with pytest.raises(NotImplementedError, match="A15"):
-        _run_main(tkitti_prep, ["--kitti_root", str(tmp_path / "kitti"),
-                                "--demo"], monkeypatch)
+    # --demo draws the first frustum of the first frame, as JAX's does
+    for side, module in (("j", jkitti_prep), ("t", tkitti_prep)):
+        monkeypatch.chdir(tmp_path / side)
+        _run_main(module, ["--kitti_root", str(tmp_path / "kitti"),
+                           "--demo"], monkeypatch)
+        assert (tmp_path / side / "demo_frustum.png").stat().st_size > 1000
+        assert capsys.readouterr().out.endswith(
+            "demo: wrote demo_frustum.png\n")
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ augmentation) / --gen_val (GT boxes, no jitter) / --gen_val_rgb_detection
 (2D detector outputs), writing frustum pickles in the native format.
 
 JAX-free copy of `transferable3d_tpu/data/kitti_prep.py`
-(`python -m transferable3d_torch.data.kitti_prep`). `--demo` draws through `utils/viz.py`, which the port does not have yet
-(ROADMAP A15): it raises NotImplementedError.
+(`python -m transferable3d_torch.data.kitti_prep`). `--demo` draws the
+first frustum of the first frame to `demo_frustum.png` through
+`utils/viz.py` and prints the path.
 """
 
 from __future__ import annotations
@@ -82,9 +83,20 @@ def main() -> None:
     args = p.parse_args()
 
     if args.demo:
-        raise NotImplementedError(
-            "--demo renders through utils/viz.py, which the port does not "
-            "have yet (ROADMAP A15); run it with t3d-prepare-kitti")
+        ds = kitti.KittiObjectDataset(args.kitti_root, "training")
+        idx = _frame_ids(ds, args.train_idx)[0]
+        recs = kitti.extract_frustum_records(
+            ds, idx, type_whitelist=tuple(args.classes.split(",")))
+        if not recs:
+            raise ValueError(f"no frustums in frame {idx}")
+        from transferable3d_torch.utils import viz
+        r = recs[0]
+        path = viz.draw_frustum(
+            r.points[:, :3], gt_box=(r.center, r.size, float(r.heading)),
+            seg=r.seg, path="demo_frustum.png",
+            title=f"frame {idx} ({bins_lib.KITTI.classes[r.class_idx]})")
+        print(f"demo: wrote {path}")
+        return
 
     whitelist = tuple(args.classes.split(","))
     os.makedirs(args.out_dir, exist_ok=True)

@@ -25,7 +25,7 @@ Parameter names match the flax tree (`dense_i`, `bn_i`, `mlp`, `mlp_i`).
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,10 +33,27 @@ from torch import nn
 from transferable3d_torch.models.layers import (Dense, PointMLP,
                                                 ScheduledBatchNorm)
 from transferable3d_torch.ops import fused_sa
-from transferable3d_torch.ops.grouping import grouped_payload
+from transferable3d_torch.ops.grouping import (ball_query, group_points,
+                                               grouped_payload)
 from transferable3d_torch.ops.interpolate import three_interpolate, three_nn
 from transferable3d_torch.ops.sampling import (farthest_point_sample,
                                               gather_points)
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, features: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FPS centroids + ball-query groups with centred local coordinates
+    (on the card the FPS is kernel K1).
+
+    Returns (new_xyz [B, S, 3], grouped [B, S, K, 3 + C])."""
+    new_xyz = gather_points(xyz, farthest_point_sample(xyz, npoint))
+    idx, _ = ball_query(new_xyz, xyz, radius, nsample)
+    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if features is None:
+        return new_xyz, grouped_xyz
+    return new_xyz, torch.cat([grouped_xyz, group_points(features, idx)],
+                              dim=-1)
 
 
 class GroupedPointMLP(nn.Module):

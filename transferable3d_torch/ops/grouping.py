@@ -109,6 +109,17 @@ def ball_query(centroids: torch.Tensor, xyz: torch.Tensor, radius: float,
     return idx.to(torch.int32), count
 
 
+def knn_point(centroids: torch.Tensor, xyz: torch.Tensor, _unused: float,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours (reference `knn_point` variant): indices
+    [B, S, k] int32 and squared distances [B, S, k]. Among equal
+    distances the lower index comes first, as `lax.top_k` orders them:
+    a stable sort, since `torch.topk` leaves the order of ties open."""
+    d2 = pairwise_sqdist(centroids, xyz)
+    dist, idx = torch.sort(d2, dim=-1, stable=True)
+    return idx[..., :k].to(torch.int32), dist[..., :k]
+
+
 def flat_row_gather(points: torch.Tensor, idx: torch.Tensor
                     ) -> torch.Tensor:
     """Gather rows of points [B, N, C] at idx [B, ...] -> [B, ..., C]."""
