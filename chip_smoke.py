@@ -247,6 +247,37 @@ The tools (`ops/grouping.knn_point`, `models/pointnet2.sample_and_group`,
      installed (else a line says it was not run), written under a
      temporary directory. `tf1_import` is not run: it reads checkpoints
      through `tensorflow`.
+Data parallelism (`parallel/mesh.py`), two ranks on the one card over
+gloo (NCCL takes a card a rank), spawned with a `file://` rendezvous:
+ 30. (a) `config5_mesh_large_batch` at its widths (v1 bf16, N=1024, C=6,
+     B=256, 128 a rank) and (b) v2 bf16 on the fused path at `v2_train`'s
+     shape (B=128 distinct frustums, 64 a rank), each on the 1/256 grid
+     with the mask pinned (and v2's box-net input snapped) as phase 14
+     pins: one train step of the two ranks against the 1-rank step on
+     the card on the same batch, weights and dropout mask, at the limits
+     `DP_V1_LIMITS` / `DP_V2_LIMITS` (the loss, the gradient cosine per
+     net, the BN buffers, on v1 the whole gradient's norm, on v2 the
+     fused chains' BN gradient norm),
+     beside a witness (the 1-rank step on the batch's halves swapped) and
+     controls that must each fail one: BN statistics left per rank, loss
+     denominators left per rank and (v2) dgamma and dbeta all-reduced
+     twice; the counters zeroed just before each rank's step: 4 K1 and 8
+     of each of K5-K9 a rank on v2, nothing on v1; K5-K7's sums: the
+     1-rank step's 24 launches split into the ranks' rows add up to the
+     whole's within 1e-4 of their terms' magnitudes, and the ranks' own
+     sums, added, to the 1-rank step's within 3e-3 (failed with the BN
+     statistics left per rank); (d) (a)'s step in a one-rank NCCL group
+     bit-identical to the step without a group; the 2-rank step's ms and
+     its collectives' ms beside the 1-rank step's; (c) `train_sup.train`
+     at config5 with `num_devices=2` (768 synthetic frustums, 12 steps,
+     resumed to 24) and `train_semisup.train` at phase 25's configuration
+     with `num_devices=2`, each run twice from one seed: every file they
+     write the same (checkpoints loaded, the log without its time stamps
+     and rates), one config line a call in the log (only rank 0 writes),
+     no stray files, the resume logged. `--data_parallel_only` runs
+     phases 1, 2 and 30 alone; `--world N` runs N ranks, on a machine
+     with N cards a card each over NCCL, and then also prints the
+     config5 driver's frustums/s beside one card's.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks; K9's member buffer and
@@ -267,6 +298,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2684,7 +2716,6 @@ def driver(args, dev, card: str):
 
 
 def _driver(args, dev, card: str):
-    import re
     import tempfile
 
     from transferable3d_torch.data import device_dataset
@@ -3008,7 +3039,6 @@ def _counting(make, record, hook=None):
 
 
 def _transfer(args, dev, card: str):
-    import re
     import tempfile
 
     from transferable3d_torch.eval import ap as ap_lib
@@ -3649,9 +3679,664 @@ def tools(args, dev, card: str, keep: dict):
           "have", flush=True)
 
 
+# Phase 30: data parallelism, by default two ranks on the one card (gloo;
+# NCCL takes one rank a card). `--world N` on a machine with N cards runs
+# N ranks over NCCL, a card each.
+DP_WORLD = 2
+# (a) `config5_mesh_large_batch` at its widths (v1 bf16, N=1024, C=6, a
+# global batch of 256); (b) `v2_train`'s shape (v2 bf16 fused, N=1024,
+# C=4, a global batch of 128).
+DP_V1_B, DP_V2_B = 256, 128
+# (c) the drivers: config5 to DP_DRIVER_STEPS steps, then resumed to
+# DP_DRIVER_RESUME (768 train frustums: 3 steps an epoch).
+DP_DRIVER_STEPS, DP_DRIVER_RESUME = 12, 24
+# Limits of the W-rank step against the 1-rank step (bf16): the loss
+# (relative), the gradient cosine of the whole model and of each net,
+# the BN running buffers (largest gap over the buffer's largest value),
+# the norm of the whole gradient over the 1-rank step's (v1: the cosines
+# do not see a gradient scaled as a whole) and, on the fused path, the
+# norm of the fused chains' BN gradients over the 1-rank step's. Set
+# from the card's readings (PERF.md section 6), each between the sound
+# runs with their witness and the controls (v1's norm on an NVIDIA H100
+# 80GB HBM3 at 700 W: two ranks 1.0003, the witness 0.9991, per-rank
+# denominators 2.0006).
+DP_V1_LIMITS = {"loss": 5e-3, "all": 0.9, "seg_net": 0.999, "tnet": 0.85,
+                "box_net": 0.95, "stats": 5e-2, "norm": (0.98, 1.02)}
+DP_V2_LIMITS = {"loss": 0.02, **FULL_BATCH_COS, "stats": 5e-2,
+                "fused_bn_norm": (0.9, 1.1)}
+
+
+def _grid_batch(batch):
+    """Each frustum moved to its own mean and onto the 1/256 grid, as
+    `SmallStep` places its frustums."""
+    out = {k: v.copy() for k, v in batch.items()}
+    mean = out["points"][..., :3].mean(axis=1)
+    out["points"][..., :3] = np.round(
+        (out["points"][..., :3] - mean[:, None]) * 256) / 256
+    out["center"] = out["center"] - mean
+    return out
+
+
+@contextlib.contextmanager
+def _dp_faults(names, model):
+    """Phase 30's controls for the block: `local_bn` (BN statistics left
+    per rank), `local_denominators` (loss and metric denominators left
+    per rank), `dgamma_twice` (the fused chains' dgamma and dbeta
+    all-reduced once before the gradient all-reduce adds them again)."""
+    import torch.distributed as dist
+
+    from transferable3d_torch.models.pointnet2 import GroupedPointMLP
+    from transferable3d_torch.parallel import mesh as mesh_lib
+
+    saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
+             mesh_lib.all_reduce_grads)
+    if "local_bn" in names:
+        mesh_lib.batch_stats_sum = lambda s, s2, rows: (s, s2, rows)
+    if "local_denominators" in names:
+        mesh_lib.global_count = lambda count: count
+    if "dgamma_twice" in names:
+        twice = [p for m in model.modules() if isinstance(m, GroupedPointMLP)
+                 for i in range(len(m.features))
+                 for p in (getattr(m, f"bn_{i}").scale,
+                           getattr(m, f"bn_{i}").bias)]
+
+        def all_reduce_grads(params):
+            for p in twice:
+                dist.all_reduce(p.grad)
+            saved[2](params)
+        mesh_lib.all_reduce_grads = all_reduce_grads
+    try:
+        yield
+    finally:
+        (mesh_lib.batch_stats_sum, mesh_lib.global_count,
+         mesh_lib.all_reduce_grads) = saved
+
+
+class DPStep:
+    """One train step of phase 30 on `device` (default cuda:0) from a
+    spec (model name, dtype, state_dict, the global batch, the keep
+    mask's seed, the foreground margin), on this rank's rows of the
+    current mesh (none: one rank, the whole batch), with the counters
+    zeroed just before it and the
+    local sums of K5-K7 recorded. The foreground logit is raised by the
+    margin (every point masked) and a v2 box net's input is snapped to
+    the grid (`_snap_to_grid`), as `SmallStep` pins its bf16 steps."""
+
+    def __init__(self, spec, device=None):
+        self.spec, self.device = spec, device or "cuda:0"
+
+    def model(self):
+        from transferable3d_torch.core import bins as bins_lib
+        from transferable3d_torch.models import registry
+
+        s = self.spec
+        m = registry.get_model(
+            s["name"], bins_lib.SUNRGBD, dtype=torch.bfloat16,
+            device=self.device, in_channels=s["batch"]["points"].shape[-1])
+        m.load_state_dict(s["state_dict"])
+        if s.get("margin"):
+            with torch.no_grad():
+                m.seg_net.seg_out.bias[1] += s["margin"]
+            if s["name"].endswith("v2"):
+                m.box_net.register_forward_pre_hook(_snap_to_grid)
+        return m
+
+    def keep(self):
+        from transferable3d_torch.models import layers
+
+        pts = self.spec["batch"]["points"]
+        return layers.dropout_keep_mask(
+            (pts.shape[0], pts.shape[1], 128), 0.5,
+            torch.Generator().manual_seed(self.spec["keep_seed"]))
+
+    def state(self, model):
+        from transferable3d_torch.train import schedules, train_loop
+
+        b = len(self.spec["batch"]["points"])
+        lr = schedules.exponential_staircase_lr(batch_size=b)
+        self.bn = schedules.bn_momentum_schedule(batch_size=b)
+        self.lr = lr
+        return train_loop.create_train_state(
+            model, train_loop.make_optimizer(lr), generator=torch.Generator())
+
+    def __call__(self, faults=(), order=None, keep_args=False):
+        from transferable3d_torch.core import bins as bins_lib
+        from transferable3d_torch.ops import _build, fused_sa
+        from transferable3d_torch.parallel import mesh as mesh_lib
+        from transferable3d_torch.train import train_loop
+
+        model = self.model()
+        state = self.state(model)
+        batch, keep = self.spec["batch"], self.keep()
+        if order is not None:
+            batch = {k: v[order] for k, v in batch.items()}
+            keep = keep[torch.from_numpy(order)]
+        step = train_loop.make_train_step(bins_lib.SUNRGBD, self.lr,
+                                          self.bn)
+        sums, seen = [], {}
+        orig = fused_sa.sa_extract, fused_sa.sa_fwd_step
+
+        def record(fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                # The arguments are copied: the biases among them are
+                # the parameters, which the optimizer then updates.
+                sums.append(tuple(t.detach().cpu().clone() for t in (
+                    out[1], out[2], out[0].float().abs().sum((0, 1, 2))))
+                    + ((fn, tuple(x.detach().clone() if torch.is_tensor(x)
+                                  else x for x in a), kw)
+                       if keep_args else ()))
+                return out
+            return wrapped
+
+        fused_sa.sa_extract, fused_sa.sa_fwd_step = map(record, orig)
+        hook = model.register_forward_hook(
+            lambda mod, a, out: seen.update(mask=out["mask"].cpu()))
+        try:
+            with _dp_faults(faults, model), SmallStep._keep_mask(keep):
+                rows = mesh_lib.local_rows(batch)
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                _, met = step(state, rows)
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)
+        finally:
+            hook.remove()
+            fused_sa.sa_extract, fused_sa.sa_fwd_step = orig
+        return {"loss": float(met["total_loss"]),
+                "grads": {k: g.cpu() for k, g in _grads(model).items()},
+                "mask": seen["mask"],
+                "stats": {k: v.detach().cpu().clone()
+                          for k, v in model.named_buffers()},
+                "launches": launches, "sums": sums}
+
+    def times(self, steps=3):
+        """(ms a step, ms a step in collectives): the wall time of
+        `steps` steps after one untimed, and the collectives' time in one
+        more step with the card synchronised around each."""
+        import torch.distributed as dist
+
+        from transferable3d_torch.core import bins as bins_lib
+        from transferable3d_torch.parallel import mesh as mesh_lib
+        from transferable3d_torch.train import train_loop
+
+        model = self.model()
+        state = self.state(model)
+        # The dropout masks drawn on the card, as the drivers draw them
+        # (a host generator draws 33.5M numbers a step at B=256).
+        state.generator = torch.Generator(device=self.device).manual_seed(
+            self.spec["keep_seed"])
+        rows = mesh_lib.local_rows(self.spec["batch"])
+        step = train_loop.make_train_step(bins_lib.SUNRGBD, self.lr,
+                                          self.bn)
+        step(state, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, rows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        spent = [0.0]
+        orig = dist.all_reduce, dist.broadcast
+
+        def timed(fn):
+            def wrapped(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                return out
+            return wrapped
+
+        dist.all_reduce, dist.broadcast = map(timed, orig)
+        try:
+            step(state, rows)
+        finally:
+            dist.all_reduce, dist.broadcast = orig
+        return ms, spent[0] * 1e3
+
+
+# The runs of phase 30's rank processes for (a) and (b): the faults of
+# each (none for the sound run, then the controls).
+DP_RUNS = {"a": [(), ("local_bn",), ("local_denominators",)],
+           "b": [(), ("local_bn",), ("local_denominators",),
+                 ("dgamma_twice",)]}
+
+
+def dp_rank(rank, init_method, tmp, world, specs):
+    """A rank process of phase 30 (a, b): its mesh over every card, rank
+    r on card r modulo their number (ranks that share a card: gloo; a
+    card each: NCCL), every run of `DP_RUNS` and the times under it;
+    rank 0 keeps the gradients, every rank its launches and K5-K7's
+    sums."""
+    from transferable3d_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.data_parallel_mesh(
+        rank=rank, world_size=world, local_world_size=world,
+        init_method=init_method)
+    cards = torch.cuda.device_count()
+    want = "gloo" if world > cards else "nccl"
+    _check(mesh.backend == want, f"{world} ranks on {cards} card(s) "
+           f"formed {mesh.backend}, not {want}")
+    out = {}
+    try:
+        with mesh_lib.use(mesh):
+            for tag, spec in specs.items():
+                one = DPStep(spec, mesh.device)
+                runs = []
+                for faults in DP_RUNS[tag]:
+                    r = one(faults)
+                    if rank:
+                        r = {"launches": r["launches"], "sums": r["sums"],
+                             "loss": r["loss"]}
+                    runs.append(r)
+                out[tag] = {"runs": runs, "times": one.times()}
+    finally:
+        mesh_lib.destroy(mesh)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def dp_nccl_rank(rank, init_method, tmp, spec):
+    """Phase 30 (d): (a)'s step without a group and in a one-rank NCCL
+    group on cuda:0, in one process."""
+    from transferable3d_torch.parallel import mesh as mesh_lib
+
+    step = DPStep(spec)
+    alone = step()
+    mesh = mesh_lib.data_parallel_mesh(
+        ["cuda:0"], rank=0, world_size=1, init_method=init_method)
+    try:
+        with mesh_lib.use(mesh):
+            grouped = step()
+    finally:
+        mesh_lib.destroy(mesh)
+    same = (alone["loss"] == grouped["loss"]
+            and all(torch.equal(alone[k][n], grouped[k][n])
+                    for k in ("grads", "stats") for n in alone[k]))
+    torch.save({"backend": mesh.backend, "same": same,
+                "loss": (alone["loss"], grouped["loss"])},
+               os.path.join(tmp, "nccl.pt"))
+
+
+def _spawn(fn, nprocs, *args):
+    """`fn(rank, init_method, tmp, *args)` in `nprocs` spawned processes
+    (a `file://` rendezvous in `tmp`); returns `tmp`, where they leave
+    their results. A rank that fails raises here."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="t3d_dp_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    mp.start_processes(fn, nprocs=nprocs, join=True, start_method="spawn",
+                       args=(init, tmp, *args))
+    return tmp
+
+
+def dp_readings(ref, got):
+    """Phase 30's gaps of `got` from the 1-rank step `ref`."""
+    out = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+    ga, gb = ref["grads"], got["grads"]
+    for net in ("all", "seg_net", "tnet", "box_net"):
+        ks = [k for k in ga if net == "all" or k.startswith(net + ".")]
+        out[net] = _cos(torch.cat([ga[k].ravel() for k in ks]),
+                        torch.cat([gb[k].ravel() for k in ks]))
+    out["norm"] = float(
+        torch.cat([gb[k].ravel() for k in ga]).double().norm()
+        / torch.cat([ga[k].ravel() for k in ga]).double().norm())
+    out["stats"] = max(
+        float((got["stats"][k].float() - v.float()).abs().max()
+              / v.float().abs().max().clamp_min(1e-30))
+        for k, v in ref["stats"].items() if v.is_floating_point())
+    fused = [k for k in ga if re.search(r"\.sa\d\.mlp(_\d)?\.bn_\d+\.", k)]
+    if fused:
+        out["fused_bn_norm"] = float(
+            torch.cat([gb[k].ravel() for k in fused]).double().norm()
+            / torch.cat([ga[k].ravel() for k in fused]).double().norm())
+    return out
+
+
+def dp_fails(r, limits):
+    out = []
+    for k, lim in limits.items():
+        if isinstance(lim, tuple):
+            bad = not lim[0] <= r[k] <= lim[1]
+        elif k in ("loss", "stats"):
+            bad = r[k] > lim
+        else:
+            bad = r[k] < lim
+        if bad:
+            out.append(k)
+    return out
+
+
+def dp_judge(what, limits, runs, controls):
+    """Every run and control with the limits it fails; every run (the
+    witness among them) within the limits, every control outside one."""
+    print(f"phase 30 {what}; limits {limits}", flush=True)
+    for tag, r in {**runs, **controls}.items():
+        print(f"phase 30   {tag}: "
+              + ", ".join(f"{k} {v:.5g}" for k, v in r.items())
+              + f"; fails {dp_fails(r, limits) or 'no limit'}", flush=True)
+    for tag, r in runs.items():
+        _check(not dp_fails(r, limits), f"phase 30 {what}: {tag} fails "
+               f"{dp_fails(r, limits)}")
+    for tag, r in controls.items():
+        _check(bool(dp_fails(r, limits)), f"phase 30 {what}: the control "
+               f"{tag} passes every limit")
+
+
+def data_parallel(args, dev, card: str):
+    """Phase 30: data parallelism on two ranks of the one card."""
+    with fused_sa_env(None):
+        _data_parallel(args, dev, card)
+
+
+def _dp_spec(name, batch, seed, dev):
+    """A phase-30 spec: a fresh bf16 model from `seed` (on the host), the
+    batch on the grid, the keep mask's seed and the foreground margin
+    (1 + twice the largest logit gap of a train-mode forward)."""
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.models import registry
+
+    c = batch["points"].shape[-1]
+    model = registry.get_model(
+        name, bins_lib.SUNRGBD, dtype=torch.bfloat16, device="cpu",
+        in_channels=c, generator=torch.Generator().manual_seed(seed))
+    spec = {"name": name, "state_dict": model.state_dict(),
+            "batch": _grid_batch(batch), "keep_seed": seed + 2}
+    probe = DPStep(spec)
+    m = probe.model().train()
+    with SmallStep._keep_mask(probe.keep()), torch.no_grad():
+        logits = m(torch.as_tensor(spec["batch"]["points"], device=dev),
+                   torch.as_tensor(spec["batch"]["one_hot"], device=dev),
+                   0.5, torch.Generator())["seg_logits"].float()
+    spec["margin"] = 1.0 + 2.0 * float(
+        (logits[..., 1] - logits[..., 0]).abs().max())
+    return spec
+
+
+def _dp_driver_runs(seed, tmp, tag, world):
+    """(c): `train_sup.train` at config5 with `world` ranks, to
+    DP_DRIVER_STEPS and resumed to DP_DRIVER_RESUME; then
+    `train_semisup.train` at phase 25's configuration with `world` ranks.
+    Returns both runs' log directories."""
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import train_semisup, train_sup
+
+    sup = os.path.join(tmp, f"{tag}_sup")
+    cfg = dataclasses.replace(
+        config_lib.PRESETS["config5_mesh_large_batch"], num_devices=world,
+        synthetic_train=768, synthetic_val=256, eval_every_epochs=2,
+        ckpt_every_epochs=2, max_steps=DP_DRIVER_STEPS, log_dir=sup,
+        seed=seed)
+    train_sup.train(cfg)
+    train_sup.train(dataclasses.replace(cfg, max_steps=DP_DRIVER_RESUME))
+    semi = os.path.join(tmp, f"{tag}_semi")
+    train_semisup.train(dataclasses.replace(
+        transfer_cfg(seed, semi), num_devices=world))
+    return sup, semi
+
+
+def _dp_files(log_dir):
+    """Every file a run wrote, relative path -> contents: checkpoints
+    loaded (a `torch.save` archive holds its file's name), the log's
+    lines without their time stamps, rates and the run's own directory,
+    other files' bytes. TensorBoard's files, named by host and time, are
+    left out."""
+    out = {}
+    for root, _, files in os.walk(log_dir):
+        for f in files:
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, log_dir)
+            if f.startswith("events.out"):
+                continue
+            if f == "state.pt":
+                out[rel] = torch.load(path, map_location="cpu",
+                                      weights_only=False)
+            elif f == "log_train.txt":
+                with open(path) as fh:
+                    out[rel] = [re.sub(r"\([\d.]+ frustums/s\)", "",
+                                       line.split("] ", 1)[-1]).replace(
+                                           log_dir, "<log_dir>")
+                                for line in fh]
+            else:
+                with open(path, "rb") as fh:
+                    out[rel] = fh.read()
+    return out
+
+
+def _same(a, b) -> bool:
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _dp_sums(ref, rank_runs):
+    """Phase 30 (b): K5-K7's statistics and the ranks.
+
+    Split: each of the 1-rank step's 24 K5-K7 launches again on each
+    rank's rows of its own arguments (the same pack): the halves' sums
+    add up to the whole's within 1e-4 of the sums of their terms'
+    magnitudes (sum |z|; sum z^2 itself), FusedChecks' gate for sums
+    that cancel. Ranks: the sums the ranks' kernels returned, added,
+    against the 1-rank step's: their z differ from it by bf16 roundings
+    (the ranks' products run at other shapes in cuBLAS, and the
+    statistics they normalise with are added in another order), so the
+    limit is 3e-3 of the terms' magnitudes: the sound runs read 2.1e-4
+    with two ranks on one card and 9.5e-4 with four on four, the runs
+    with the BN statistics left per rank 2.5e-2 and 5.4e-2 (PERF.md
+    section 6), and those must fail it."""
+    _check(len(ref) == 3 * 8 and all(
+        len(runs[0]["sums"]) == len(ref) for runs in rank_runs),
+        "phase 30 (b): K5-K7 ran another number of times on a rank than "
+        "on one")
+
+    def gap(s, q, s1, q1, mag):
+        return max(float(((s - s1).abs() / (mag + 1e-30)).max()),
+                   float(((q - q1).abs() / (q1 + 1e-30)).max()))
+
+    split = {"K5": 0.0, "K6/K7": 0.0}
+    ranked = {name: {"K5": 0.0, "K6/K7": 0.0}
+              for name in ("sound", "local_bn")}
+    for i, (s1, q1, mag, fn, a, kw) in enumerate(ref):
+        kind = "K5" if i % 3 == 0 else "K6/K7"
+        cut = a[0].shape[0] // len(rank_runs)
+        parts = []
+        for r in range(len(rank_runs)):
+            rows = slice(r * cut, (r + 1) * cut)
+            sub = (tuple(x[rows].contiguous() for x in a[:4]) + a[4:]
+                   if kind == "K5" else (a[0][rows].contiguous(),) + a[1:])
+            out = fn(*sub, **kw)
+            parts.append((out[1].cpu(), out[2].cpu()))
+        split[kind] = max(split[kind], gap(sum(p[0] for p in parts),
+                                           sum(p[1] for p in parts),
+                                           s1, q1, mag))
+        for name, run in (("sound", 0), ("local_bn", 1)):
+            got = [runs[run]["sums"][i] for runs in rank_runs]
+            ranked[name][kind] = max(ranked[name][kind], gap(
+                sum(g[0] for g in got), sum(g[1] for g in got), s1, q1, mag))
+    print("phase 30 (b) K5-K7 sums over the sums of their terms' "
+          "magnitudes: the 1-rank step's launches split into the ranks' "
+          "rows " + ", ".join(f"{k} {v:.3g}" for k, v in split.items())
+          + " (limit 1e-4); the ranks' own, added, against the 1-rank "
+          "step's " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                ranked["sound"].items())
+          + ", with the BN statistics left per rank " + ", ".join(
+              f"{k} {v:.3g}" for k, v in ranked["local_bn"].items())
+          + " (limit 3e-3)", flush=True)
+    _check(max(split.values()) <= 1e-4, "phase 30 (b): K5-K7's sums do "
+           "not split over the ranks' rows")
+    _check(max(ranked["sound"].values()) <= 3e-3, "phase 30 (b): the "
+           "ranks' K5-K7 sums do not add up to the 1-rank step's")
+    _check(max(ranked["local_bn"].values()) > 3e-3, "phase 30 (b): the "
+           "control with per-rank BN statistics passes the sums' limit")
+
+
+def _data_parallel(args, dev, card: str):
+    import shutil
+    import tempfile
+
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.data import synthetic
+    from transferable3d_torch.data.provider import FrustumDataset
+    from transferable3d_torch.train import config as config_lib
+
+    t0 = time.perf_counter()
+    # The rank processes allocate on the same card: hand back the blocks
+    # the earlier phases left in this process's caching allocator.
+    torch.cuda.empty_cache()
+    cfg5 = config_lib.PRESETS["config5_mesh_large_batch"]
+    _check((cfg5.model, cfg5.compute_dtype, cfg5.num_point,
+            cfg5.num_channels, cfg5.batch_size)
+           == ("frustum_pointnets_v1", "bfloat16", N, 6, DP_V1_B),
+           f"config5's widths changed: {cfg5}")
+    sun = bins_lib.SUNRGBD
+    recs = synthetic.make_dataset(DP_V1_B, sun, seed=args.seed,
+                                  extra_channels=3)
+    batch_a = FrustumDataset(recs, sun, npoints=N, rotate_to_center=True,
+                             seed=args.seed).get_batch(list(range(DP_V1_B)))
+    recs = synthetic.make_dataset(DP_V2_B, sun, seed=args.seed + 1,
+                                  n_object=600, n_clutter=300)
+    batch_b = FrustumDataset(recs, sun, npoints=N, rotate_to_center=True,
+                             seed=args.seed).get_batch(list(range(DP_V2_B)))
+    specs = {"a": _dp_spec("frustum_pointnets_v1", batch_a, args.seed, dev),
+             "b": _dp_spec("frustum_pointnets_v2", batch_b, args.seed + 10,
+                           dev)}
+    one, witness, times1 = {}, {}, {}
+    for tag, spec in specs.items():
+        step = DPStep(spec)
+        one[tag] = step(keep_args=tag == "b")
+        b = len(spec["batch"]["points"])
+        halves = np.r_[b // 2:b, 0:b // 2]
+        witness[tag] = step(order=halves)
+        times1[tag] = step.times()[0]
+    world, cards = args.world, torch.cuda.device_count()
+    where = (f"{world} ranks on {min(world, cards)} card(s), "
+             + ("a card each (NCCL)" if world <= cards else "gloo"))
+    tmp = _spawn(dp_rank, world, world, specs)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) and (b): the step of the ranks against one rank's.
+    for tag, limits, what in (
+            ("a", DP_V1_LIMITS, f"(a) config5, v1 bf16, B={DP_V1_B} "
+             f"({DP_V1_B // world} a rank), C=6, {where}"),
+            ("b", DP_V2_LIMITS, f"(b) v2 bf16 fused, B={DP_V2_B} "
+             f"({DP_V2_B // world} a rank), C=4, {where}")):
+        runs = ranks[0][tag]["runs"]
+        sound = runs[0]
+        _check(bool(one[tag]["mask"].all()), f"phase 30 {tag}: the "
+               "1-rank step's mask is not full (the margin did not pin it)")
+        for r in range(world):
+            _check(ranks[r][tag]["runs"][0]["loss"] == sound["loss"],
+                   f"phase 30 {tag}: the ranks' losses differ")
+        dp_judge(what, limits,
+                 {f"{world} ranks vs 1 rank": dp_readings(one[tag], sound),
+                  "witness: 1 rank on the batch's halves swapped":
+                      dp_readings(one[tag], witness[tag])},
+                 {f"control: {f[0]}": dp_readings(one[tag], run)
+                  for f, run in zip(DP_RUNS[tag][1:], runs[1:])})
+
+    # (b): launches a rank, and K5-K7's sums of the ranks added.
+    want = {"fps": 4, **{k: 8 for k, _, _ in FUSED_KERNELS}}
+    for r in range(world):
+        _expect_launches(ranks[r]["b"]["runs"][0]["launches"], want)
+    _expect_launches(one["b"]["launches"], want)
+    _expect_launches(ranks[0]["a"]["runs"][0]["launches"], {})
+    print(f"phase 30 launches a rank: (a) none, (b) "
+          f"{ranks[0]['b']['runs'][0]['launches']}", flush=True)
+    _dp_sums(one["b"]["sums"], [ranks[r]["b"]["runs"] for r in
+                                 range(world)])
+
+    # (d): a one-rank NCCL group, bit for bit.
+    tmp = _spawn(dp_nccl_rank, 1, specs["a"])
+    nccl = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 30 (d) one rank in a {nccl['backend']} group on cuda:0: "
+          f"loss {nccl['loss'][1]:.6f} (without a group "
+          f"{nccl['loss'][0]:.6f}), step bit-identical {nccl['same']}",
+          flush=True)
+    _check(nccl["backend"] == "nccl" and nccl["same"],
+           "phase 30 (d): the one-rank NCCL step differs from the step "
+           "without a group")
+
+    for tag, name in (("a", "config5 v1 bf16 B=256"),
+                      ("b", "v2 bf16 fused B=128")):
+        ms2, coll = (ranks[0][tag]["times"][0], ranks[0][tag]["times"][1])
+        print(f"times phase 30 {name}: {where}: {ms2:.1f} ms a step "
+              f"(rank 0), of which collectives {coll:.1f} ms (the card "
+              f"synchronised around each); 1 rank {times1[tag]:.1f} ms a "
+              f"step {card}", flush=True)
+
+    # (c): both drivers with `world` ranks, twice from one seed.
+    tmp = tempfile.mkdtemp(prefix="t3d_dp_drivers_")
+    t1 = time.perf_counter()
+    runs = [_dp_driver_runs(args.seed, tmp, f"run{i}", world)
+            for i in range(2)]
+    t_drivers = time.perf_counter() - t1
+    for which, i in (("train_sup", 0), ("train_semisup", 1)):
+        files = [_dp_files(r[i]) for r in runs]
+        log = files[0]["log_train.txt"]
+        configs = sum(1 for line in log if "config: " in line)
+        _check(configs == (2 if i == 0 else 1),
+               f"phase 30 (c) {which}: {configs} config lines in the log "
+               "(a rank other than 0 wrote)")
+        stray = [p for p in files[0] if ".tmp-" in p]
+        _check(not stray, f"phase 30 (c) {which}: stray files {stray}")
+        same = _same(*files)
+        print(f"phase 30 (c) {which} with num_devices={world}, twice: "
+              f"{len(files[0])} files ({sorted(files[0])[:6]} ...), "
+              f"bit-identical {same}", flush=True)
+        _check(same, f"phase 30 (c): {which}'s two runs from one seed "
+               "differ")
+    sup = _dp_files(runs[0][0])
+    _check(os.path.join("ckpt", str(DP_DRIVER_RESUME), "state.pt") in sup,
+           f"phase 30 (c): no checkpoint at step {DP_DRIVER_RESUME}")
+    _check(any(f"resumed from step {DP_DRIVER_STEPS}" in line
+               for line in sup["log_train.txt"]),
+           "phase 30 (c): the driver did not resume")
+    if 1 < world <= cards:
+        # Ranks on cards of their own: the driver's rate beside one
+        # card's on the same configuration (a reading, no gate).
+        from transferable3d_torch.train import train_sup
+
+        solo = os.path.join(tmp, "one_rank")
+        train_sup.train(dataclasses.replace(
+            config_lib.PRESETS["config5_mesh_large_batch"],
+            synthetic_train=768, synthetic_val=256, eval_every_epochs=2,
+            ckpt_every_epochs=2, max_steps=DP_DRIVER_STEPS, log_dir=solo,
+            seed=args.seed, num_devices=1))
+        rates = {}
+        for tag, path in ((f"{world} ranks", runs[0][0]), ("1 rank", solo)):
+            with open(os.path.join(path, "log_train.txt")) as f:
+                rates[tag] = [float(r) for r in re.findall(
+                    r"\(([0-9.]+) frustums/s\)", f.read())][:4]
+        print(f"times phase 30 config5 driver, train frustums/s by epoch "
+              f"from its log (its first {DP_DRIVER_STEPS} steps): "
+              + "; ".join(f"{k} {v}" for k, v in rates.items())
+              + f" {card}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 30 data parallel: {time.perf_counter() - t0:.1f} s "
+          f"(drivers {t_drivers:.1f} s) {card}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data_parallel_only", action="store_true",
+                    help="phases 1, 2 and 30 only (no kernels line)")
+    ap.add_argument("--world", type=int, default=DP_WORLD,
+                    help="phase 30's ranks (on a machine with that many "
+                    "cards: one a card, over NCCL)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3687,6 +4372,9 @@ def main() -> None:
           f"{'ran' if _build.build_seconds is not None else 'cached'})",
           flush=True)
 
+    if args.data_parallel_only:
+        data_parallel(args, dev, card)
+        return
     keep = {}
     with torch.no_grad():
         kernels = serve(args, dev, card, keep)
@@ -3698,6 +4386,7 @@ def main() -> None:
     repro(args, dev, card)
     study(args, dev, card)
     tools(args, dev, card, keep)
+    data_parallel(args, dev, card)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

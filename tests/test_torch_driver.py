@@ -349,19 +349,23 @@ def test_train_on_device_data_and_grad_accum(tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """Data parallelism (A14) is refused by both drivers; `evaluate`
+    """Both drivers refuse data parallelism that cannot run (ranks that
+    do not divide the batch, `multihost` without a launcher's
+    environment); `evaluate`
     without a detector checkpoint, or with `--boxpc_refine` on a
     directory without a BoxPC checkpoint, raises FileNotFoundError; and
     an entry point called without `device` on a machine without a GPU
     raises instead of running on the CPU."""
     from transferable3d_torch.train import train_semisup
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     cfg = _tiny(tmp_path, "box_estimation_v1")
     semi = train_semisup.SemisupConfig(**dataclasses.asdict(cfg))
-    for bad in (dict(num_devices=2), dict(multihost=True)):
-        with pytest.raises(ValueError, match="A14"):
+    for bad, why in ((dict(num_devices=3), "not divisible by 3 ranks"),
+                     (dict(multihost=True), "launcher")):
+        with pytest.raises(ValueError, match=why):
             train_sup.train(dataclasses.replace(cfg, **bad), device=CPU)
-        with pytest.raises(ValueError, match="A14"):
+        with pytest.raises(ValueError, match=why):
             train_semisup.train(dataclasses.replace(semi, **bad), device=CPU)
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         ttest.evaluate(cfg, str(tmp_path / "r"), device=CPU)

@@ -822,8 +822,9 @@ def test_semisup_driver_device_data_and_refusals(tmp_path):
     assert "weak-val: iou3d_ge_025=" in log
     rows = (tmp_path / "log" / "metrics_weak_val.csv").read_text()
     assert rows.splitlines()[1].startswith("2,")
-    for bad in (dict(num_devices=2), dict(multihost=True)):
-        with pytest.raises(ValueError, match="A14"):
+    for bad, why in ((dict(num_devices=3), "not divisible by 3 ranks"),
+                     (dict(multihost=True), "launcher")):
+        with pytest.raises(ValueError, match=why):
             train_semisup.train(dataclasses.replace(cfg, **bad), device=CPU)
     with pytest.raises(ValueError, match="fewer than a batch"):
         train_semisup.train(dataclasses.replace(

@@ -1,0 +1,299 @@
+"""Rank processes for tests/test_torch_parallel.py.
+
+Imports torch and the port only: the ranks are spawned processes, and
+they import no JAX. `Ranks(fn, world, *args)` spawns `world` ranks on
+the CPU (gloo, a `file://` rendezvous in a temporary directory, so
+concurrent test workers never share a port, and one torch thread a
+rank), each running `fn(mesh, *args)` under its mesh (`mesh.use`), and
+lets the caller work while they run. The step functions read the mesh
+where the drivers' steps read it (`mesh.active()`); called in the test's
+own process, without a mesh, they are the 1-rank step.
+
+The controls of the tests are switches of `steps`: `local_bn` leaves the
+BN statistics per rank (`mesh.batch_stats_sum` the identity),
+`local_denominators` the loss and metric denominators
+(`mesh.global_count` the identity), and `dgamma_twice` all-reduces the
+fused chain's BN gradients once before the gradient all-reduce adds
+them again.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from transferable3d_torch.core import bins as tbins
+from transferable3d_torch.models import boxpc as tboxpc
+from transferable3d_torch.models import layers as tlayers
+from transferable3d_torch.models import registry
+from transferable3d_torch.parallel import mesh as mesh_lib
+from transferable3d_torch.train import schedules as tsched
+from transferable3d_torch.train import semisup as tsemi
+from transferable3d_torch.train import train_loop as tloop
+from transferable3d_torch.utils import bridge
+
+CFG = tbins.SUNRGBD
+
+
+def _entry(rank, world, fn, args, init_method, tmp):
+    torch.set_num_threads(1)
+    mesh = mesh_lib.data_parallel_mesh(["cpu"], rank=rank, world_size=world,
+                                       init_method=init_method)
+    try:
+        with mesh_lib.use(mesh):
+            out = fn(mesh, *args)
+    finally:
+        mesh_lib.destroy(mesh)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+class Ranks:
+    """`world` spawned CPU ranks running `fn(mesh, *args)`; the caller
+    may work meanwhile. `results()` joins them (a rank that raised makes
+    it raise) and returns their results in rank order."""
+
+    def __init__(self, fn, world: int, *args):
+        import torch.multiprocessing as mp
+
+        self.world = world
+        self.tmp = tempfile.mkdtemp(prefix="t3d_dp_test_")
+        self.ctx = mp.start_processes(
+            _entry, nprocs=world, join=False, start_method="spawn",
+            args=(world, fn, args,
+                  "file://" + os.path.join(self.tmp, "rendezvous"),
+                  self.tmp))
+
+    def results(self) -> list:
+        try:
+            while not self.ctx.join():
+                pass
+            return [torch.load(os.path.join(self.tmp, f"rank{r}.pt"),
+                               weights_only=False)
+                    for r in range(self.world)]
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def controls(names, model=None):
+    """The named faults (see the module docstring) for the block."""
+    saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
+             mesh_lib.all_reduce_grads)
+    if "local_bn" in names:
+        mesh_lib.batch_stats_sum = lambda s, s2, rows: (s, s2, rows)
+    if "local_denominators" in names:
+        mesh_lib.global_count = lambda count: count
+    if "dgamma_twice" in names:
+        from transferable3d_torch.models.pointnet2 import GroupedPointMLP
+
+        twice = [p for m in model.modules() if isinstance(m, GroupedPointMLP)
+                 for i in range(len(m.features))
+                 for p in (getattr(m, f"bn_{i}").scale,
+                           getattr(m, f"bn_{i}").bias)]
+
+        def all_reduce_grads(params):
+            for p in twice:
+                dist.all_reduce(p.grad)
+            saved[2](params)
+        mesh_lib.all_reduce_grads = all_reduce_grads
+    try:
+        yield
+    finally:
+        (mesh_lib.batch_stats_sum, mesh_lib.global_count,
+         mesh_lib.all_reduce_grads) = saved
+
+
+@contextlib.contextmanager
+def keep_masks(masks):
+    """`layers.dropout_keep_mask` returns `masks` (whole-batch tensors) in
+    turn."""
+    queue = list(masks)
+    saved = tlayers.dropout_keep_mask
+    tlayers.dropout_keep_mask = lambda shape, rate, gen: queue.pop(0)
+    try:
+        yield
+    finally:
+        tlayers.dropout_keep_mask = saved
+    assert not queue, "a keep mask was not drawn"
+
+
+def _permuted(batch, keep, order):
+    if order is None:
+        return batch, keep
+    return ({k: v[order] for k, v in batch.items()},
+            [m[torch.from_numpy(order)] for m in keep])
+
+
+def snap_to_grid(mod, args):
+    """Forward pre-hook of the box net (chip_smoke's `_snap_to_grid`):
+    its input points moved rigidly onto the 1/256 grid around their
+    mean, so every rank count and order feeds the box net the same exact
+    coordinates, and FPS and the balls take the same picks, however the
+    T-Net's bf16 output rounds. The gradient passes straight through."""
+    obj = args[0]
+    with torch.no_grad():
+        snapped = torch.round((obj - obj[:, :1]) * 256) / 256
+        snapped -= torch.round(snapped.mean(dim=1, keepdim=True) * 256) / 256
+    return (snapped + (obj - obj.detach()), *args[1:])
+
+
+def _model(spec):
+    """The spec's model from its state_dict; with `margin`, the
+    foreground logit's bias raised by it (every point masked, past any
+    rounding) and the box net's input snapped (`snap_to_grid`)."""
+    model = registry.get_model(
+        spec["name"], CFG, dtype=spec["dtype"], device="cpu",
+        in_channels=spec["batch"]["points"].shape[-1],
+        num_object_point=spec["nobj"])
+    model.load_state_dict(spec["state_dict"])
+    if spec.get("margin"):
+        with torch.no_grad():
+            model.seg_net.seg_out.bias[1] += spec["margin"]
+        model.box_net.register_forward_pre_hook(snap_to_grid)
+    return model
+
+
+def _outcome(model, metrics, masks):
+    params, stats = bridge.state_dict_to_flax(model)
+    return {"metrics": {k: np.asarray(v.cpu() if torch.is_tensor(v) else v,
+                                      np.float32)
+                        for k, v in metrics.items()},
+            "grads": bridge.grads_to_flax(model), "params": params,
+            "stats": stats, "masks": masks}
+
+
+@contextlib.contextmanager
+def permuted_draws(order):
+    """BoxPC's step with every draw it takes (the perturbation, the
+    aug, the dropout masks) permuted on the batch axis by `order`, as its
+    frustums are: the witness's step is then the same function of each
+    frustum. A no-op without `order`."""
+    if order is None:
+        yield
+        return
+    idx = torch.from_numpy(order)
+    saved = (tboxpc.perturbation_draws, tsemi.shape_aug_draws,
+             tlayers.dropout_keep_mask)
+
+    def permuted(fn):
+        def draws(*a):
+            out = fn(*a)
+            return (out[idx] if torch.is_tensor(out)
+                    else tuple(x[idx] for x in out))
+        return draws
+    (tboxpc.perturbation_draws, tsemi.shape_aug_draws,
+     tlayers.dropout_keep_mask) = map(permuted, saved)
+    try:
+        yield
+    finally:
+        (tboxpc.perturbation_draws, tsemi.shape_aug_draws,
+         tlayers.dropout_keep_mask) = saved
+
+
+def train_step(spec, faults=(), order=None):
+    """One `make_train_step` of `spec` (model name, dtype, state_dict,
+    the global numpy batch, the global keep mask, nobj) on this rank's
+    rows of the current mesh (none: one rank, the whole batch), the
+    frustums in `order`, with the named faults."""
+    if spec.get("fused"):
+        os.environ.pop("T3D_FUSED_SA", None)
+    model = _model(spec)
+    batch, keep = _permuted(spec["batch"], [spec["keep"]], order)
+    b = len(batch["points"])
+    lr = tsched.exponential_staircase_lr(batch_size=b)
+    bn = tsched.bn_momentum_schedule(batch_size=b)
+    state = tloop.create_train_state(model, tloop.make_optimizer(lr),
+                                     generator=torch.Generator())
+    seen = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: seen.append(out["mask"].numpy()))
+    step = tloop.make_train_step(CFG, lr, bn)
+    with controls(faults, model), keep_masks(keep):
+        _, metrics = step(state, mesh_lib.local_rows(batch))
+    hook.remove()
+    return _outcome(model, metrics, seen)
+
+
+def semisup_step(spec, faults=(), order=None):
+    """One `make_semisup_train_step` (v1 f32) of `spec` (the detector's
+    and BoxPC's state_dicts, the global strong and weak batches, their
+    keep masks, the weak-loss weights) on this rank's rows."""
+    det = _model(spec)
+    bp = registry.get_model("boxpc_fit", CFG, device="cpu")
+    bp.load_state_dict(spec["boxpc"])
+    strong, keep = _permuted(spec["batch"], spec["keep"][:1], order)
+    weak, keep_w = _permuted(spec["weak"], spec["keep"][1:], order)
+    b = len(strong["points"])
+    lr = tsched.exponential_staircase_lr(base_lr=1e-3, batch_size=b)
+    bn = tsched.bn_momentum_schedule(batch_size=b)
+    state = tsemi.SemisupState(
+        detector=tloop.create_train_state(det, tloop.make_optimizer(lr),
+                                          generator=torch.Generator()),
+        boxpc=bp)
+    seen = []
+    hook = det.register_forward_hook(
+        lambda mod, args, out: seen.append(out["mask"].numpy()))
+    step = tsemi.make_semisup_train_step(
+        CFG, lr, bn, weights=tsemi.WeakLossWeights(**spec["weights"]),
+        diag_classes=CFG.num_classes)
+    with controls(faults, det), keep_masks(keep + keep_w):
+        _, metrics = step(state, mesh_lib.local_rows(strong),
+                          mesh_lib.local_rows(weak))
+    hook.remove()
+    return _outcome(det, metrics, seen)
+
+
+def boxpc_step(spec, faults=(), order=None):
+    """One phase-A `make_boxpc_train_step` of `spec` (BoxPC's
+    state_dict, the global strong batch, the state generator's seed, the
+    aug's log range) on this rank's rows of the current mesh. The step
+    draws the whole batch's perturbation, aug and dropout masks from the
+    state's generator, seeded alike on every rank, and keeps the rank's
+    rows; with `order`, the frustums and every draw are permuted alike
+    (`permuted_draws`)."""
+    model = registry.get_model("boxpc_fit", CFG, device="cpu")
+    model.load_state_dict(spec["state_dict"])
+    batch = _permuted(spec["batch"], [], order)[0]
+    b = len(batch["points"])
+    state = tsemi.create_boxpc_state(
+        model, tloop.make_optimizer(tsched.exponential_staircase_lr(
+            base_lr=1e-3, batch_size=b)), seed=spec["seed"])
+    step = tsemi.make_boxpc_train_step(
+        CFG, tsched.bn_momentum_schedule(batch_size=b),
+        aniso_aug=spec["aniso"])
+    with controls(faults), permuted_draws(order):
+        _, metrics = step(state, mesh_lib.local_rows(batch))
+    return _outcome(model, metrics, [])
+
+
+def steps(mesh, fn, spec, runs):
+    """`fn(spec, faults)` for each tuple of faults in `runs`."""
+    return [fn(spec, faults) for faults in runs]
+
+
+def sharding(mesh, batch, state_dict):
+    """This rank's `shard_batch` rows, and a model's state after
+    `replicate` from a copy that differs on every rank."""
+    model = registry.get_model("frustum_pointnets_v1", CFG, device="cpu",
+                               in_channels=batch["points"].shape[-1])
+    model.load_state_dict(state_dict)
+    state = tloop.create_train_state(
+        model, tloop.make_optimizer(tsched.exponential_staircase_lr()),
+        generator=torch.Generator().manual_seed(mesh.rank))
+    state.step = 10 + mesh.rank
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(mesh.rank)
+    mesh_lib.replicate(state, mesh)
+    return {"rows": {k: v.numpy() for k, v in
+                     mesh_lib.shard_batch(batch, mesh).items()},
+            "state_dict": {k: v.clone() for k, v in
+                           model.state_dict().items()},
+            "step": state.step,
+            "generator": state.generator.get_state()}

@@ -19,7 +19,9 @@ two: `draw` takes the step's random numbers (`u` uniform [B, npoints],
 the device, and `batch_from_draws`, a pure function, builds the batch
 from them exactly as JAX's `sample_batch` does from its own. Record
 order is shuffled on the host with `np.random.RandomState(seed)`, as in
-the JAX package.
+the JAX package. Under data parallelism every rank draws the same
+global batch from the shared seed and the drivers keep the rank's rows
+(`parallel.mesh.local_rows`).
 
 Memory: R records x M points x C channels f32, e.g. 50k SUN RGB-D
 frustums at M=2048, C=6 are some 2.5 GB.

@@ -34,6 +34,7 @@ from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core import geometry
 from transferable3d_torch.models.layers import (MLPHead, PointMLP,
                                                  masked_max_pool)
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 class BoxParams(NamedTuple):
@@ -201,7 +202,7 @@ def boxpc_targets(perturbed: BoxParams, gt: BoxParams,
 def _huber_mean(x: torch.Tensor, d: float = 1.0) -> torch.Tensor:
     a = x.abs()
     q = torch.clamp_max(a, d)
-    return torch.mean(0.5 * q ** 2 + d * (a - q))
+    return mesh_lib.batch_mean(0.5 * q ** 2 + d * (a - q))
 
 
 def boxpc_loss(outputs: Dict[str, torch.Tensor],
@@ -211,17 +212,18 @@ def boxpc_loss(outputs: Dict[str, torch.Tensor],
     must push any box toward the GT, not only near-fits)."""
     logit = outputs["fit_logit"]
     label = targets["fit_label"]
-    fit_loss = torch.mean(
+    fit_loss = mesh_lib.batch_mean(
         torch.clamp_min(logit, 0) - logit * label
         + torch.log1p(torch.exp(-logit.abs())))
     dc = _huber_mean(outputs["delta_center"] - targets["delta_center"])
     dh = _huber_mean(outputs["delta_heading"] - targets["delta_heading"])
     ds = _huber_mean(outputs["delta_size"] - targets["delta_size"])
     total = fit_loss + delta_weight * (dc + dh + ds)
-    acc = torch.mean(((logit > 0) == (label > 0.5)).to(torch.float32))
+    acc = mesh_lib.batch_mean(
+        ((logit > 0) == (label > 0.5)).to(torch.float32))
     return {
         "total_loss": total, "fit_loss": fit_loss, "fit_accuracy": acc,
         "delta_center_loss": dc, "delta_heading_loss": dh,
         "delta_size_loss": ds,
-        "pos_fraction": torch.mean(label),
+        "pos_fraction": mesh_lib.batch_mean(label),
     }

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from transferable3d_torch import resolve_device as _init_device
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 class Dense(nn.Module):
@@ -64,7 +65,11 @@ class ScheduledBatchNorm(nn.Module):
 
     Eval: y = (x_f32 - mean) * (1/sqrt(var + eps) * scale) + bias, cast
     to `dtype` (layers.py:53-67). Train: biased batch variance over all
-    axes but the last, and running = m * running + (1 - m) * batch.
+    axes but the last, and running = m * running + (1 - m) * batch. Under
+    data parallelism the sum and sum of squares are summed over the
+    ranks (`parallel.mesh.batch_moments`, forward and backward), so the
+    statistics, and the running buffers on every rank, are the whole
+    batch's.
     """
 
     EPSILON = 1e-3  # TF1 batch_norm default, as in the JAX module
@@ -82,9 +87,11 @@ class ScheduledBatchNorm(nn.Module):
                 ) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
+            # Over every axis but the last and the whole batch: across
+            # the ranks under data parallelism, plain means without a
+            # process group.
+            mean, mean_sq = mesh_lib.batch_moments(xf)
+            var = mean_sq - mean * mean
             with torch.no_grad():
                 self.mean.mul_(momentum).add_((1.0 - momentum) * mean)
                 self.var.mul_(momentum).add_((1.0 - momentum) * var)
@@ -175,8 +182,12 @@ def dropout_keep_mask(shape, rate: float, generator: torch.Generator
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
             ) -> torch.Tensor:
     """flax `nn.Dropout(rate)` in train mode: where(keep, x / (1 - rate),
-    0); at rate 0.5 the scaling by 2 is exact in bf16."""
-    keep = dropout_keep_mask(tuple(x.shape), rate, generator).to(x.device)
+    0); at rate 0.5 the scaling by 2 is exact in bf16. Under data
+    parallelism (axis 0 the batch) the mask is drawn for the whole batch
+    and the rank keeps its own rows, as the 1-rank step draws it."""
+    shape = (x.shape[0] * mesh_lib.world_size(), *x.shape[1:])
+    keep = mesh_lib.local_rows(dropout_keep_mask(shape, rate, generator))
+    keep = keep.to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

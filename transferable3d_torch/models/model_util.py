@@ -7,6 +7,11 @@ from bf16 hi/lo parts (exact to about 2^-17 relative); here the same
 selection is a gather, which is exact. The loss takes the corner loss at
 the ground-truth (heading bin, size cluster) slot only, as the JAX
 `get_loss` does; `get_box3d_corners_grid` gives the full grid.
+
+Under data parallelism (`parallel/mesh.py`) every mean over the batch is
+the sum over the rank's rows over the whole batch's count
+(`mesh_lib.global_count`): each rank's loss and metrics are its share of
+the whole batch's, and the shares add up to it.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core import geometry
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 NUM_OBJECT_POINT = bins_lib.NUM_OBJECT_POINT
 
@@ -117,7 +123,7 @@ def huber_loss(error: torch.Tensor, delta: float) -> torch.Tensor:
     abs_err = torch.abs(error)
     quad = torch.clamp_max(abs_err, delta)
     lin = abs_err - quad
-    return torch.mean(0.5 * quad ** 2 + delta * lin)
+    return mesh_lib.batch_mean(0.5 * quad ** 2 + delta * lin)
 
 
 def int_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -126,7 +132,7 @@ def int_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     one_hot = F.one_hot(labels.long(), logits.shape[-1]).float()
-    return torch.mean(logz - torch.sum(logits * one_hot, dim=-1))
+    return mesh_lib.batch_mean(logz - torch.sum(logits * one_hot, dim=-1))
 
 
 class Labels(NamedTuple):
@@ -159,7 +165,9 @@ def get_loss(end_points: Dict, labels: Labels, cfg: bins_lib.BinConfig,
     b = labels.center.shape[0]
     w = (torch.ones(b, dtype=torch.float32, device=dev)
          if example_weights is None else example_weights.float())
-    denom = torch.clamp_min(torch.sum(w), 1e-6)
+    # The whole batch's weight: summed over the ranks under data
+    # parallelism, so each rank's terms are its share of the global mean.
+    denom = torch.clamp_min(mesh_lib.global_count(torch.sum(w)), 1e-6)
 
     def wmean(per_example):
         return torch.sum(per_example * w) / denom
@@ -254,7 +262,7 @@ def compute_metrics(end_points: Dict, labels: Labels,
     `class_idx` the size cluster is the known class, as in the
     inference decode."""
     seg_pred = torch.argmax(end_points["seg_logits"], dim=-1)
-    seg_acc = torch.mean((seg_pred == labels.seg).float())
+    seg_acc = mesh_lib.batch_mean((seg_pred == labels.seg).float())
     center, size, heading, _, _ = decode_box(end_points, cfg,
                                              class_idx=class_idx)
     gt_heading = bins_lib.class_to_angle(
@@ -265,9 +273,9 @@ def compute_metrics(end_points: Dict, labels: Labels,
                                        labels.center, gt_size, gt_heading)
     return {
         "seg_accuracy": seg_acc,
-        "iou3d_mean": torch.mean(iou3d),
-        "ioubev_mean": torch.mean(ioubev),
-        "iou3d_ge_025": torch.mean((iou3d >= 0.25).float()),
-        "iou3d_ge_05": torch.mean((iou3d >= 0.5).float()),
-        "iou3d_ge_07": torch.mean((iou3d >= 0.7).float()),
+        "iou3d_mean": mesh_lib.batch_mean(iou3d),
+        "ioubev_mean": mesh_lib.batch_mean(ioubev),
+        "iou3d_ge_025": mesh_lib.batch_mean((iou3d >= 0.25).float()),
+        "iou3d_ge_05": mesh_lib.batch_mean((iou3d >= 0.5).float()),
+        "iou3d_ge_07": mesh_lib.batch_mean((iou3d >= 0.7).float()),
     }

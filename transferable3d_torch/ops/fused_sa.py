@@ -28,7 +28,12 @@ product can run, so it is the JAX package's cached-z schedule:
             gradient with ties split equally), K9 for j = 0 (the same
             without writing dy_0: it scatters dy_0 to its points, with
             the slot multiplicities), then d_pf and d_qc (plain ops).
-Eval mode under autograd takes the same schedule with packs from the
+Under data parallelism (`parallel/mesh.py`) the schedule sums K5-K7's
+statistics and the backward's sum dy and sum dy * xhat over the ranks
+before they enter a pack, with the global row count, so every kernel
+reads the whole batch's BN terms; dgamma and dbeta stay the rank's own
+sums, which the gradient all-reduce adds. Eval mode under autograd takes
+the same schedule with packs from the
 running statistics. Gradients to the geometry are zero; the returned
 means and variances carry none. Every whole-grid sum of K5-K9 is
 deterministic (per-block partials added in a fixed order); only K9's
@@ -48,6 +53,7 @@ import torch
 from transferable3d_torch.ops import _build
 from transferable3d_torch.ops.grouping import (direct_sqdist, flat_row_gather,
                                                radius_sq, select_slots)
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 # csrc/sa_infer.cu: threads per block of the f32 kernel, max chain depth,
 # and the shared memory one block may use on an H100 (227 KB); the
@@ -905,14 +911,17 @@ def _schedule_forward(new_xyz, xyz, pf, qc, gammas, betas, ws, bs, radius,
     """`_fwd_impl` of the JAX package, rows layout, with residuals."""
     depth = len(gammas)
     b, s, _ = new_xyz.shape
-    m = b * s * nsample
     z, sums, sumsq = sa_extract(new_xyz, xyz, pf, qc, radius, nsample)
     zs, packs, means, variances = [z], [], [], []
     zmax = zmin = None
     for d in range(depth):
         if train:
-            mu = sums / m
-            var = sumsq / m - mu * mu
+            # K5's (d = 0) or K6/K7's sums over the whole batch: summed
+            # over the ranks under data parallelism, with m global.
+            tot, totsq, m = mesh_lib.batch_stats_sum(sums, sumsq,
+                                                     b * s * nsample)
+            mu = tot / m
+            var = totsq / m - mu * mu
         else:
             mu, var = running[d]
         means.append(mu)
@@ -960,7 +969,6 @@ class _FusedChain(torch.autograd.Function):
         zs, packs = rest[:depth], list(rest[depth:2 * depth])
         ws = rest[2 * depth:]
         b, s = pooled.shape[:2]
-        m = b * s * k
         dpooled = dpooled.to(_BF).contiguous()
         dgammas, dbetas = [None] * depth, [None] * depth
         dws, dbs = [None] * (depth - 1), [None] * (depth - 1)
@@ -988,8 +996,14 @@ class _FusedChain(torch.autograd.Function):
                     dy_next, sdy, sdyx, dws[j], dbs[j] = sa_bwd_step(
                         train, top, zs[j], zs[j + 1], dy_src, packs[j],
                         packs[j + 1], ws[j])
+            # The rank's own sums are its share of dbeta and dgamma: the
+            # gradient all-reduce adds the shares once.
             dbetas[j], dgammas[j] = sdy, sdyx
             if train:  # rows 4-5 must be final before step j - 1 runs
+                # K8/K9 of step j - 1, d_pf and d_qc read the whole
+                # batch's mean dy and dy x-hat.
+                sdy, sdyx, m = mesh_lib.batch_stats_sum(sdy, sdyx,
+                                                        b * s * k)
                 packs[j] = packs[j].clone()
                 packs[j][4] = sdy / m
                 packs[j][5] = sdyx / m

@@ -1,0 +1,2 @@
+from transferable3d_torch.parallel.mesh import (  # noqa: F401
+    batch_sharding, data_parallel_mesh, replicate, shard_batch)

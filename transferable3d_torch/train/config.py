@@ -5,10 +5,12 @@ the same `TrainConfig`, `PRESETS`, `add_cli_args` and
 `config_from_args`, so `python -m transferable3d_torch.train.train_sup`
 and `.test` parse the same command lines as `t3d-train` and `t3d-test`;
 `bin_config()` returns the port's `core/bins` constants. Fields that name
-the JAX runtime keep their names and meaning: `num_devices` above 1 and
-`multihost` are refused by the port's driver (data parallelism is not
-ported yet), and `grad_accum_steps` is the port's `Optimizer`
-accumulation. tests/test_torch_driver.py holds it equal to the original.
+the JAX runtime keep their names and meaning: `num_devices` is the
+number of data-parallel ranks (0: every local card), `multihost` forms
+the group from a launcher's environment (torchrun; see
+`train_sup.run_data_parallel`), and `grad_accum_steps` is the port's
+`Optimizer` accumulation. tests/test_torch_driver.py holds it equal to
+the original.
 
 Capability parity target: the reference's argparse/tf.app.flags CLI
 surface (SURVEY.md §5.6) — same knobs (model, num_point, batch size, lr +

@@ -43,6 +43,7 @@ from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core import geometry
 from transferable3d_torch.models import boxpc as boxpc_lib
 from transferable3d_torch.models import model_util
+from transferable3d_torch.parallel import mesh as mesh_lib
 from transferable3d_torch.train import train_loop
 
 
@@ -137,6 +138,8 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
     JAX splits the step's key into (sample, dropout, aug); the port draws
     from `state.generator` in that order: the perturbation's numbers,
     then the seed of the dropout masks' own generator, then the aug's.
+    Under a mesh (`train_loop.make_train_step`'s data parallelism) every
+    rank draws the whole batch's numbers and keeps its own rows.
     """
 
     def step(state: train_loop.TrainState, batch: Dict
@@ -145,13 +148,15 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
         device = next(model.parameters()).device
         batch = train_loop.batch_to_device(batch, device)
         gt = gt_boxes_from_batch(batch, cfg)
-        b = gt.center.shape[0]
-        sample = boxpc_lib.perturbation_draws(state.generator, b)
+        b = gt.center.shape[0] * mesh_lib.world_size()
+        sample = mesh_lib.local_rows(
+            boxpc_lib.perturbation_draws(state.generator, b))
         dropout_gen = fork_generator(state.generator)
         points = batch["points"]
         if aniso_aug > 0:
             points, gt = shape_aug_from_draws(
-                points, gt, *shape_aug_draws(state.generator, b, aniso_aug))
+                points, gt, *mesh_lib.local_rows(
+                    shape_aug_draws(state.generator, b, aniso_aug)))
         perturbed = boxpc_lib.perturbed_from_draws(gt, *sample)
         targets = boxpc_lib.boxpc_targets(perturbed, gt, fit_iou_thresh)
         bn_momentum = bn_schedule(state.step)
@@ -161,9 +166,11 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
                     generator=dropout_gen)
         losses = boxpc_lib.boxpc_loss(out, targets)
         losses["total_loss"].backward()
+        mesh_lib.all_reduce_grads(state.optimizer.params)
         state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, mesh_lib.reduce_metrics(
+            {k: v.detach() for k, v in losses.items()})
 
     return step
 
@@ -351,7 +358,7 @@ def weak_losses(end_points: Dict, batch: Dict[str, torch.Tensor],
     # (a) maximize BoxPC's fit probability of the predicted box.
     logit = out["fit_logit"]
     fit_ex = gate * F.softplus(-logit)  # -log sigmoid, [B]
-    fit_loss = fit_ex.mean()
+    fit_loss = mesh_lib.batch_mean(fit_ex)
 
     # (b) the BoxPC-refined box as a pseudo-label; the size term is
     # prior-normalized linear huber (bounded gradient as the box shrinks).
@@ -361,7 +368,7 @@ def weak_losses(end_points: Dict, batch: Dict[str, torch.Tensor],
         _huber_ex(box.center - refined.center)
         + _huber_ex(box.heading - refined.heading)
         + _huber_ex((box.size - refined.size) / prior))
-    refine_loss = refine_ex.mean()
+    refine_loss = mesh_lib.batch_mean(refine_ex)
 
     # (c) 2D reprojection consistency: calib-exact corner projection for
     # examples that carry a camera matrix (has_calib == 1), the
@@ -376,15 +383,16 @@ def weak_losses(end_points: Dict, batch: Dict[str, torch.Tensor],
         err = torch.where(batch["has_calib"] > 0, calib_res, span_res)
     else:
         err = span_res
-    reproj_loss = _huber(err).mean()
+    reproj_loss = mesh_lib.batch_mean(_huber(err))
 
     # (d) the per-class mean-size prior (normalized).
-    size_prior_loss = _huber((box.size - prior) / prior).mean()
+    size_prior_loss = mesh_lib.batch_mean(
+        _huber((box.size - prior) / prior))
 
     # (e) size-class CE from the known 2D class label.
     logp = torch.log_softmax(end_points["size_scores"], dim=-1)
-    size_cls_loss = -torch.gather(logp, 1,
-                                  batch["class_idx"][:, None])[:, 0].mean()
+    size_cls_loss = -mesh_lib.batch_mean(
+        torch.gather(logp, 1, batch["class_idx"][:, None])[:, 0])
 
     total = (weights.fit * fit_loss + weights.refine * refine_loss
              + weights.reprojection * reproj_loss
@@ -397,12 +405,14 @@ def weak_losses(end_points: Dict, batch: Dict[str, torch.Tensor],
         "weak_refine_loss": refine_loss,
         "weak_reproj_loss": reproj_loss,
         "weak_size_prior_loss": size_prior_loss,
-        "weak_fit_prob": torch.sigmoid(logit).mean(),
-        "weak_trust_frac": gate.mean(),
+        "weak_fit_prob": mesh_lib.batch_mean(torch.sigmoid(logit)),
+        "weak_trust_frac": mesh_lib.batch_mean(gate),
     }
     if diag_classes:
         oh = F.one_hot(batch["class_idx"], diag_classes).to(torch.float32)
-        cnt = torch.clamp_min(oh.sum(dim=0), 1.0)  # [C]
+        # each class's count over the whole batch; diag_count is the
+        # rank's, and the metrics' all-reduce adds the ranks' counts.
+        cnt = torch.clamp_min(mesh_lib.global_count(oh.sum(dim=0)), 1.0)
 
         def per_class(x):
             return torch.einsum("b,bc->c", x, oh) / cnt
@@ -445,7 +455,9 @@ def make_semisup_train_step(cfg: bins_lib.BinConfig,
     `weak_warmup_steps` ramps the weak weight linearly from 0 (at step 0
     the weak boxes are noise). Returns (state, metrics): the losses,
     `combined_loss`, `lr` and, with `step_cfg.compute_iou_metrics`, the
-    strong pass's IoU metrics, as detached tensors.
+    strong pass's IoU metrics, as detached tensors. Under a mesh, both
+    batches are this rank's rows of the global batches, as in
+    `train_loop.make_train_step`.
     """
 
     def step(state: SemisupState, strong: Dict, weak: Dict
@@ -475,16 +487,18 @@ def make_semisup_train_step(cfg: bins_lib.BinConfig,
                 0.0, 1.0))
         total = sup["total_loss"] + w_eff * wk["weak_total_loss"]
         total.backward()
+        mesh_lib.all_reduce_grads(det.optimizer.params)
         det.optimizer.step()
 
         metrics = {k: v.detach() for k, v in {**sup, **wk}.items()}
         metrics["combined_loss"] = total.detach()
-        metrics["lr"] = lr_schedule(det.step)
         if step_cfg.compute_iou_metrics:
             with torch.no_grad():
                 metrics.update(model_util.compute_metrics(
                     {k: v.detach() for k, v in ep_s.items()}, labels, cfg,
                     class_idx=strong.get("class_idx")))
+        metrics = mesh_lib.reduce_metrics(metrics)
+        metrics["lr"] = lr_schedule(det.step)
         det.step += 1
         return state, metrics
 

@@ -18,6 +18,14 @@ steps run eagerly:
 behind `clip_by_global_norm` and `MultiSteps` (train_loop.py:240-258),
 on `torch.optim.Adam`. `_flatten_lane_safe` is a TPU layout workaround
 and has no counterpart.
+
+Data parallelism: a step run under a current mesh (`parallel/mesh.py`,
+`mesh_lib.use`) takes this rank's rows of the global batch, and its BN
+statistics, dropout masks and loss denominators are the whole batch's;
+after the backward one all-reduce sums the gradients (the whole-batch
+gradient, so the clip norm is the global one on every rank), and one
+more sums the metrics. The step then computes on W ranks
+what it computes on one rank on the whole batch.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.models import model_util
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +208,8 @@ def make_train_step(cfg: bins_lib.BinConfig,
     running statistics, optimizer, step + 1) and the metrics are the
     loss terms, `lr` and `bn_momentum` at the step, and the box-IoU
     metrics when `step_cfg.compute_iou_metrics`, as detached tensors.
+    Under a mesh, the batch is this rank's rows of the global batch and
+    the metrics are the whole batch's.
     """
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -213,16 +224,18 @@ def make_train_step(cfg: bins_lib.BinConfig,
                            generator=state.generator)
         losses = _losses(cfg, step_cfg, batch, end_points, True)
         losses["total_loss"].backward()
+        mesh_lib.all_reduce_grads(state.optimizer.params)
         state.optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["lr"] = lr_schedule(state.step)
-        metrics["bn_momentum"] = bn_momentum
         if step_cfg.compute_iou_metrics:
             with torch.no_grad():
                 metrics.update(model_util.compute_metrics(
                     {k: v.detach() for k, v in end_points.items()},
                     labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
+        metrics = mesh_lib.reduce_metrics(metrics)
+        metrics["lr"] = lr_schedule(state.step)
+        metrics["bn_momentum"] = bn_momentum
         state.step += 1
         return state, metrics
 
@@ -233,7 +246,8 @@ def make_eval_step(cfg: bins_lib.BinConfig,
                    step_cfg: StepConfig = StepConfig()
                    ) -> Callable[[TrainState, Dict], Dict]:
     """Losses and metrics of `state.model` with the running BN
-    statistics; no update."""
+    statistics; no update. Under a mesh, the batch is this rank's rows
+    and the metrics are the whole batch's."""
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         model = state.model
@@ -246,7 +260,7 @@ def make_eval_step(cfg: bins_lib.BinConfig,
                 metrics.update(model_util.compute_metrics(
                     end_points, labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
-        return metrics
+        return mesh_lib.reduce_metrics(metrics)
 
     return step
 

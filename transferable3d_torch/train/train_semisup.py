@@ -16,9 +16,11 @@ Phases:
      the epochs the config names.
 
 The log lines and the CSV columns are JAX's (per-class diagnostic
-vectors become indexed columns `diag_<name>_<i>`). One device: the card
-unless `train(cfg, device="cpu")`; `num_devices` above 1 and `multihost`
-are refused, as by `train_sup.train` (ROADMAP A14).
+vectors become indexed columns `diag_<name>_<i>`). The card unless
+`train(cfg, device="cpu")`; `num_devices` and `multihost` run both
+phases data-parallel on the ranks `train_sup.run_data_parallel` forms,
+each rank on its rows of the global strong and weak batches, with rank 0
+writing the logs and both checkpoints.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.data import device_dataset, pickle_io, synthetic
 from transferable3d_torch.data.provider import FrustumDataset
 from transferable3d_torch.models.boxpc import BoxPCFitNet
+from transferable3d_torch.parallel import mesh as mesh_lib
 from transferable3d_torch.train import config as config_lib
 from transferable3d_torch.train import semisup, train_loop, train_sup
 from transferable3d_torch.utils.checkpoint import CheckpointManager
@@ -109,8 +112,9 @@ def build_semisup_datasets(cfg: SemisupConfig):
 def pretrain_boxpc(cfg: SemisupConfig, strong_ds: FrustumDataset,
                    logger: Logger, device=None):
     """Phase A: BoxPC trained for `cfg.boxpc_epochs` epochs of the strong
-    split (resuming from `<log_dir>/boxpc_ckpt`, saved there at the end).
-    Returns (model, state)."""
+    split (resuming from `<log_dir>/boxpc_ckpt`, saved there at the end);
+    under a mesh, data-parallel. Returns (model, state)."""
+    mesh = mesh_lib.active()
     device = resolve_device(device)
     bins_cfg = cfg.bin_config()
     if len(strong_ds) < cfg.batch_size:
@@ -125,6 +129,8 @@ def pretrain_boxpc(cfg: SemisupConfig, strong_ds: FrustumDataset,
     ckpt = CheckpointManager(f"{cfg.log_dir}/boxpc_ckpt")
     if ckpt.restore_latest(state) is not None:
         logger.log_string(f"boxpc: resumed from step {state.step}")
+    if mesh is not None:
+        mesh_lib.replicate(state, mesh)
     step = semisup.make_boxpc_train_step(bins_cfg, bn_sched,
                                          aniso_aug=cfg.boxpc_aniso_aug)
 
@@ -134,7 +140,7 @@ def pretrain_boxpc(cfg: SemisupConfig, strong_ds: FrustumDataset,
     epoch = 0
     while steps_done < target_steps:
         for batch in strong_ds.epoch_batches(cfg.batch_size):
-            state, metrics = step(state, batch)
+            state, metrics = step(state, mesh_lib.local_rows(batch))
             steps_done = state.step
             if steps_done >= target_steps:
                 break
@@ -164,14 +170,17 @@ def _host_metrics(metrics: dict) -> dict:
 
 
 def train(cfg: SemisupConfig, device=None) -> dict:
-    """Phase A then phase B; returns the last weak-val metrics."""
-    if cfg.multihost or cfg.num_devices > 1:
-        raise ValueError(
-            "data-parallel training (num_devices > 1, multihost) is not "
-            "ported yet (ROADMAP A14); the port trains on one device")
+    """Phase A then phase B on the ranks `num_devices` and `multihost`
+    ask for; returns the last weak-val metrics."""
+    return train_sup.run_data_parallel(cfg, device, _train)
+
+
+def _train(cfg: SemisupConfig, device) -> dict:
     device = resolve_device(device)
     train_sup.f32_numerics()
-    logger = Logger(cfg.log_dir)
+    mesh = mesh_lib.active()
+    lead = mesh_lib.rank() == 0
+    logger = Logger(cfg.log_dir if lead else None, echo=lead)
     logger.log_string(f"semisup config: {dataclasses.asdict(cfg)}")
     bins_cfg = cfg.bin_config()
     strong_ds, weak_ds, weak_val = build_semisup_datasets(cfg)
@@ -191,6 +200,8 @@ def train(cfg: SemisupConfig, device=None) -> dict:
     state = semisup.SemisupState(
         detector=train_loop.create_train_state(detector, tx, seed=cfg.seed),
         boxpc=boxpc_model)
+    if mesh is not None:
+        mesh_lib.replicate(state.detector, mesh)
     step = semisup.make_semisup_train_step(
         bins_cfg, lr_sched, bn_sched, weak_weight=cfg.weak_weight,
         weights=semisup.WeakLossWeights(
@@ -251,7 +262,10 @@ def train(cfg: SemisupConfig, device=None) -> dict:
                           else strong_ds.epoch_batches(cfg.batch_size))
         for strong_batch in strong_batches:
             weak_iter, weak_batch = next_weak(weak_iter)
-            state, metrics = step(state, strong_batch, weak_batch)
+            # Each rank draws the global batches and trains on its rows.
+            state, metrics = step(state,
+                                  mesh_lib.local_rows(strong_batch),
+                                  mesh_lib.local_rows(weak_batch))
             seen += 2 * cfg.batch_size
             if cfg.max_steps and state.detector.step >= cfg.max_steps:
                 stop = True
@@ -273,8 +287,9 @@ def train(cfg: SemisupConfig, device=None) -> dict:
             agg = []
             for batch in weak_val.epoch_batches(cfg.batch_size,
                                                 shuffle=False):
-                agg.append({k: float(v) for k, v in
-                            eval_step(state.detector, batch).items()})
+                agg.append({k: float(v) for k, v in eval_step(
+                    state.detector,
+                    mesh_lib.local_rows(batch)).items()})
             if agg:
                 last_eval = {k: float(np.mean([x[k] for x in agg]))
                              for k in agg[0]}

@@ -9,11 +9,23 @@ name; the epoch loop runs train and eval passes on the staircase LR and
 BN-momentum schedules, checkpoints periodically, on the last step and on
 SIGTERM/SIGINT, and resumes from the newest checkpoint.
 
-One device: the card unless `train(cfg, device="cpu")`. Data
-parallelism (`num_devices` above 1, `multihost`) is not ported yet
-(ROADMAP A14) and is refused rather than run on one device. The driver
-turns off TF32 and cuBLAS's reduced-precision bf16 reductions, so
-products accumulate in f32 as in the JAX package.
+The card unless `train(cfg, device="cpu")`. The driver turns off TF32
+and cuBLAS's reduced-precision bf16 reductions, so products accumulate
+in f32 as in the JAX package.
+
+Data parallelism (`run_data_parallel`, `parallel/mesh.py`): with
+`num_devices` N > 1 the driver spawns N ranks (`torch.multiprocessing`,
+a `file://` rendezvous in a temporary directory), rank r on
+`cuda:(r % device_count)`, or on the CPU with `device="cpu"`; 0 means
+every local card (one rank on the CPU). Under a launcher that set
+WORLD_SIZE (torchrun), and with `multihost`, the group forms from the
+launcher's environment (`init_method="env://"`, the counterpart of
+`jax.distributed.initialize()`). The backend is NCCL where each rank
+has a card of its own and gloo where ranks share one or run on the CPU.
+Every rank builds the same datasets and model from the seed, takes rank
+0's state after a restore, draws the same global batch and trains on
+its rows; the step is the 1-rank step on the whole batch. Rank 0 writes
+the logs and checkpoints; a rank that fails makes `train` raise.
 
 Dataset selection:
   --data_path <pickles>   real frustum pickles (SUN-RGBD / KITTI prep)
@@ -26,7 +38,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import signal
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +51,7 @@ from transferable3d_torch import resolve_device
 from transferable3d_torch.data import device_dataset, pickle_io, synthetic
 from transferable3d_torch.data.provider import FrustumDataset
 from transferable3d_torch.models import registry
+from transferable3d_torch.parallel import mesh as mesh_lib
 from transferable3d_torch.train import config as config_lib
 from transferable3d_torch.train import schedules, train_loop
 from transferable3d_torch.utils.checkpoint import CheckpointManager
@@ -109,15 +125,94 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train(cfg: config_lib.TrainConfig, device=None) -> dict:
-    if cfg.multihost or cfg.num_devices > 1:
+def local_ranks(cfg: config_lib.TrainConfig, device=None) -> int:
+    """The ranks `num_devices` asks for on this host: N, or with 0 every
+    local card (one rank on the CPU)."""
+    if cfg.num_devices:
+        return cfg.num_devices
+    if device is not None and torch.device(device).type == "cpu":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def _rank_main(rank: int, world: int, body, cfg, device, init_method: str,
+               threads: int, out_path: str) -> None:
+    """One spawned rank: its mesh, `body` under it, and rank 0's result
+    as JSON."""
+    torch.set_num_threads(threads)
+    mesh = mesh_lib.data_parallel_mesh(
+        None if device is None else [device], rank=rank, world_size=world,
+        local_rank=rank, local_world_size=world, init_method=init_method)
+    try:
+        with mesh_lib.use(mesh):
+            out = body(cfg, mesh.device)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+    finally:
+        mesh_lib.destroy(mesh)
+
+
+def run_data_parallel(cfg: config_lib.TrainConfig, device, body) -> dict:
+    """`body(cfg, device)` on every rank, under the rank's mesh
+    (`mesh_lib.use`: the body reads it as `mesh_lib.active()`); rank 0's
+    result.
+
+    One rank: `body(cfg, device)` in this process without a mesh (the
+    body resolves `device`; on a rank, `device` is the rank's).
+    Under a launcher (WORLD_SIZE set) or with `multihost`: this process is
+    one rank of the launcher's group. Otherwise `local_ranks` ranks are
+    spawned here and joined; a rank that fails raises here."""
+    launched = "WORLD_SIZE" in os.environ
+    if cfg.multihost and not launched:
         raise ValueError(
-            "data-parallel training (num_devices > 1, multihost) is not "
-            "ported yet (ROADMAP A14); the port trains on one device")
+            "multihost forms its group from a launcher's environment "
+            "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, as torchrun "
+            "sets them); none is set")
+    world = (int(os.environ["WORLD_SIZE"]) if launched
+             else local_ranks(cfg, device))
+    if cfg.batch_size % world:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by "
+                         f"{world} ranks")
+    if launched:
+        mesh = mesh_lib.data_parallel_mesh(
+            None if device is None else [device], init_method="env://")
+        try:
+            with mesh_lib.use(mesh):
+                return body(cfg, mesh.device)
+        finally:
+            mesh_lib.destroy(mesh)
+    if world == 1:
+        return body(cfg, device)
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="t3d_ranks_") as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        mp.start_processes(
+            _rank_main, nprocs=world, join=True, start_method="spawn",
+            args=(world, body, cfg, device,
+                  "file://" + os.path.join(tmp, "rendezvous"),
+                  max(1, torch.get_num_threads() // world), out_path))
+        with open(out_path) as f:
+            return json.load(f)
+
+
+def train(cfg: config_lib.TrainConfig, device=None) -> dict:
+    """Train `cfg` on `device` (default the card), on the ranks that
+    `num_devices` and `multihost` ask for; the last eval metrics."""
+    return run_data_parallel(cfg, device, _train)
+
+
+def _train(cfg: config_lib.TrainConfig, device) -> dict:
     device = resolve_device(device)
     f32_numerics()
-    logger = Logger(cfg.log_dir)
+    mesh = mesh_lib.active()
+    lead = mesh_lib.rank() == 0
+    logger = Logger(cfg.log_dir if lead else None, echo=lead)
     logger.log_string(f"config: {dataclasses.asdict(cfg)}")
+    if mesh is not None:
+        logger.log_string(f"data parallel: {mesh.world_size} ranks, "
+                          f"backend {mesh.backend}")
     bins_cfg = cfg.bin_config()
     train_ds, val_ds = build_datasets(cfg)
     logger.log_string(
@@ -136,6 +231,8 @@ def train(cfg: config_lib.TrainConfig, device=None) -> dict:
     ckpt = CheckpointManager(f"{cfg.log_dir}/ckpt")
     if ckpt.restore_latest(state) is not None:
         logger.log_string(f"resumed from step {state.step}")
+    if mesh is not None:
+        mesh_lib.replicate(state, mesh)
 
     step_cfg = train_loop.StepConfig(
         box_loss_weight=cfg.box_loss_weight,
@@ -181,15 +278,19 @@ def train(cfg: config_lib.TrainConfig, device=None) -> dict:
             if stop:
                 break
             t0, seen = time.time(), 0
+            # Each rank draws the global batch and trains on its rows.
             if device_iter is not None:
-                batches = device_iter.epoch()
+                batches = (mesh_lib.local_rows(b)
+                           for b in device_iter.epoch())
             else:
-                batches = prefetch(train_ds.epoch_batches(cfg.batch_size),
-                                   device=device)
+                batches = prefetch(
+                    (mesh_lib.local_rows(b)
+                     for b in train_ds.epoch_batches(cfg.batch_size)),
+                    device=device)
             for batch in batches:
                 state, metrics = train_step(state, batch)
                 seen += cfg.batch_size
-                if interrupted["flag"] or (
+                if mesh_lib.any_rank(interrupted["flag"]) or (
                         cfg.max_steps and state.step >= cfg.max_steps):
                     stop = True
                     break
@@ -210,8 +311,8 @@ def train(cfg: config_lib.TrainConfig, device=None) -> dict:
                 agg = []
                 for batch in val_ds.epoch_batches(cfg.batch_size,
                                                   shuffle=False):
-                    agg.append({k: float(v) for k, v in
-                                eval_step(state, batch).items()})
+                    agg.append({k: float(v) for k, v in eval_step(
+                        state, mesh_lib.local_rows(batch)).items()})
                 if agg:
                     last_eval = {k: float(np.mean([m[k] for m in agg]))
                                  for k in agg[0]}

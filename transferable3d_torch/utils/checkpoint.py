@@ -14,6 +14,11 @@ the accumulated gradient `acc`) and, as the counterpart of
 under a temporary name and renamed into place, so a save that is cut
 short leaves the previous checkpoint whole. Saves are synchronous, so
 `wait()` has nothing to wait for.
+
+Under data parallelism (a current `parallel.mesh.Mesh`) the state is
+the same on every rank: rank 0 writes, every rank restores, and
+a barrier on either side of a save and a restore keeps a rank from
+reading a step before it is whole or from running ahead of a write.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from transferable3d_torch.parallel import mesh as mesh_lib
 from transferable3d_torch.train.train_loop import TrainState
 
 _FILE = "state.pt"
@@ -38,7 +44,9 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if mesh_lib.rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+        mesh_lib.barrier()
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -50,6 +58,14 @@ class CheckpointManager:
                           os.path.join(self.directory, d, _FILE)))
 
     def save(self, step: int, state: TrainState) -> None:
+        """Write `state` as step `step` (on rank 0 of a mesh; every rank
+        returns once it is whole)."""
+        mesh_lib.barrier()
+        if mesh_lib.rank() == 0:
+            self._write(step, state)
+        mesh_lib.barrier()
+
+    def _write(self, step: int, state: TrainState) -> None:
         opt = state.optimizer
         payload = {
             "step": int(state.step),
@@ -76,6 +92,7 @@ class CheckpointManager:
         """Restore the newest checkpoint into `template` (in place: its
         model, optimizer and generator keep their devices) and return it;
         None when there is no checkpoint."""
+        mesh_lib.barrier()
         step = self.latest_step()
         if step is None:
             return None
@@ -91,6 +108,7 @@ class CheckpointManager:
                                                    opt.params)])
         template.generator.set_state(payload["generator"])
         template.step = payload["step"]
+        mesh_lib.barrier()
         return template
 
     def latest_step(self) -> Optional[int]:

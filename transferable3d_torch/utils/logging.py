@@ -8,7 +8,7 @@ SURVEY.md §5.5; gated so the package works without it).
 
 Copy of `transferable3d_tpu/utils/logging.py`, which imports no JAX (the
 port imports nothing of the JAX package): the same files, lines and
-columns.
+columns, and an `echo` switch for the ranks that do not log.
 """
 
 from __future__ import annotations
@@ -22,8 +22,11 @@ from typing import Dict, Optional
 class Logger:
     def __init__(self, log_dir: Optional[str] = None,
                  filename: str = "log_train.txt",
-                 tensorboard: bool = True):
+                 tensorboard: bool = True, echo: bool = True):
+        """`echo=False` (with no `log_dir`) silences the logger: the
+        data-parallel drivers give one to every rank but rank 0."""
         self.log_dir = log_dir
+        self.echo = echo
         self._file = None
         self._csv = None
         self._csv_writer = None
@@ -43,7 +46,8 @@ class Logger:
         """stdout + log file (reference `log_string`)."""
         stamp = time.strftime("%H:%M:%S")
         line = f"[{stamp}] {msg}"
-        print(line, flush=True)
+        if self.echo:
+            print(line, flush=True)
         if self._file:
             self._file.write(line + "\n")
             self._file.flush()
