@@ -278,6 +278,29 @@ gloo (NCCL takes a card a rank), spawned with a `file://` rendezvous:
      phases 1, 2 and 30 alone; `--world N` runs N ranks, on a machine
      with N cards a card each over NCCL, and then also prints the
      config5 driver's frustums/s beside one card's.
+ 31. points-axis sharding (`data_points_mesh`), four rank processes on
+     the one card over gloo (a card each over NCCL on a machine with
+     four), each with `f32_numerics()` as here, serving two meshes in
+     turn: (a) phase 30's (a) step on a (2, 2) mesh and (b) its (b) step
+     on (2, 2), then (b) on (1, 2) and (c) a v2 predict step (B=128,
+     phase 3's model: half the points masked) on (1, 2). (a) and (b)
+     against the 1-rank step at `PP_V1_LIMITS` / `PP_V2_LIMITS` (phase
+     30's, v2 with the whole gradient's norm) beside the witness on the
+     batch's halves swapped and the controls `local_pool` (each max over
+     points on the rank's points), `local_bn`, `local_masking` (the
+     masking on the rank's points) and `box_grads_everywhere` (the box
+     stages' gradients over every rank, not the data group), which must
+     each fail one; every rank the same loss and gradient; 4 K1 and 8 of
+     each of K5-K9 a rank on v2, nothing on v1. (c): 4 K1 and 8 K2 a
+     rank; the seg logits, the whole frustums' masks and `seg_conf` at
+     `PP_PREDICT_LIMITS`, and every other detection of a frustum with the
+     1-rank mask bit-identical; the same with every point masked (all
+     frustums); the witness one rank in two calls of B / 2, the control
+     `local_pool` must fail. The last (1, 2) rank holds K1, K5-K9 of one
+     train step and K1, K2 of one predict step, at its own shapes, to
+     their plain twins as phase 28 does. Step and collective times
+     beside one rank's. `--points_parallel_only` runs phases 1, 2 and 31
+     alone.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks; K9's member buffer and
@@ -3392,11 +3415,11 @@ class _Capture:
             setattr(mod, name, recorder(self.saved[name], self.calls[name]))
 
 
-def _study_kernels(step_calls, eval_calls, step_launches):
-    """K1 and K5-K9 on one phase-B step's arguments and K1 and K2 on one
-    eval step's, each against its plain twin at phases 5 and 13's limits;
-    K9's H, Mq and cnt also twice the same bits and equal, bit for bit,
-    to the twin's order over its own dy_0."""
+def _study_kernels(step_calls, eval_calls, step_launches, phase=28):
+    """K1 and K5-K9 on one train step's arguments and K1 and K2 on one
+    eval or predict step's, each against its plain twin at phases 5 and
+    13's limits; K9's H, Mq and cnt also twice the same bits and equal,
+    bit for bit, to the twin's order over its own dy_0."""
     calls, ev = ({k: [_to(a, "cuda") for a in v] for k, v in c.calls.items()}
                  for c in (step_calls, eval_calls))
     k6 = [a for a in calls["sa_fwd_step_cuda"] if not a[4]]
@@ -3410,19 +3433,19 @@ def _study_kernels(step_calls, eval_calls, step_launches):
            "sa_bwd_step": len(calls["sa_bwd_step_cuda"]),
            "sa_bwd_step0": len(calls["sa_bwd_step0_cuda"])}
     _check(got == {k: step_launches[k] for k in got},
-           f"phase 28: the captured step's calls {got} are not its launches "
-           f"{step_launches}")
+           f"phase {phase}: the captured step's calls {got} are not its "
+           f"launches {step_launches}")
     _check(ev["farthest_point_sample"] and ev["sa_infer"],
-           "phase 28: no eval step was captured")
+           f"phase {phase}: no eval step was captured")
     for a in calls["farthest_point_sample"] + ev["farthest_point_sample"]:
-        _check_fps("phase 28", *a)
+        _check_fps(f"phase {phase}", *a)
     for a in ev["sa_infer"]:
-        _check_sa_infer("phase 28", a)
-    check = FusedChecks(phase=28)
+        _check_sa_infer(f"phase {phase}", a)
+    check = FusedChecks(phase=phase)
     for a in calls["sa_extract_cuda"]:
         share = _ball_shares(a[0], a[1], a[4], a[5])
-        print(f"phase 28 balls S={a[0].shape[1]} N={a[1].shape[1]} K={a[5]} "
-              f"r={a[4]}: " + " ".join(f"{nm} {v:.4f}"
+        print(f"phase {phase} balls S={a[0].shape[1]} N={a[1].shape[1]} "
+              f"K={a[5]} r={a[4]}: " + " ".join(f"{nm} {v:.4f}"
                                        for nm, v in share.items()),
               flush=True)
         check.extract("", *a)
@@ -3719,17 +3742,23 @@ def _grid_batch(batch):
 
 @contextlib.contextmanager
 def _dp_faults(names, model):
-    """Phase 30's controls for the block: `local_bn` (BN statistics left
-    per rank), `local_denominators` (loss and metric denominators left
-    per rank), `dgamma_twice` (the fused chains' dgamma and dbeta
-    all-reduced once before the gradient all-reduce adds them again)."""
+    """Phase 30's and 31's controls for the block: `local_bn` (BN
+    statistics left per rank), `local_denominators` (loss and metric
+    denominators left per rank), `dgamma_twice` (the fused chains' dgamma
+    and dbeta all-reduced once before the gradient all-reduce adds them
+    again); on a points mesh `local_pool` (every max over points on the
+    rank's points alone), `local_masking` (the masking on the rank's
+    points alone) and `box_grads_everywhere` (the box stages' gradients
+    summed over every rank, not over the data group)."""
     import torch.distributed as dist
 
+    from transferable3d_torch.models import model_util
     from transferable3d_torch.models.pointnet2 import GroupedPointMLP
     from transferable3d_torch.parallel import mesh as mesh_lib
 
     saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
-             mesh_lib.all_reduce_grads)
+             mesh_lib.all_reduce_grads, mesh_lib.points_max,
+             model_util.point_cloud_masking)
     if "local_bn" in names:
         mesh_lib.batch_stats_sum = lambda s, s2, rows: (s, s2, rows)
     if "local_denominators" in names:
@@ -3740,16 +3769,31 @@ def _dp_faults(names, model):
                  for p in (getattr(m, f"bn_{i}").scale,
                            getattr(m, f"bn_{i}").bias)]
 
-        def all_reduce_grads(params):
+        def all_reduce_grads(params, replicated=()):
             for p in twice:
                 dist.all_reduce(p.grad)
-            saved[2](params)
+            saved[2](params, replicated)
         mesh_lib.all_reduce_grads = all_reduce_grads
+    if "local_pool" in names:
+        mesh_lib.points_max = lambda x, dim: x.amax(dim=dim)
+    if "local_masking" in names:
+        def masking(*a, **kw):
+            gather = mesh_lib.points_gather
+            mesh_lib.points_gather = lambda x: x
+            try:
+                return saved[4](*a, **kw)
+            finally:
+                mesh_lib.points_gather = gather
+        model_util.point_cloud_masking = masking
+    if "box_grads_everywhere" in names:
+        mesh_lib.all_reduce_grads = lambda params, replicated=(): saved[2](
+            params)
     try:
         yield
     finally:
         (mesh_lib.batch_stats_sum, mesh_lib.global_count,
-         mesh_lib.all_reduce_grads) = saved
+         mesh_lib.all_reduce_grads, mesh_lib.points_max,
+         model_util.point_cloud_masking) = saved
 
 
 class DPStep:
@@ -3764,6 +3808,7 @@ class DPStep:
 
     def __init__(self, spec, device=None):
         self.spec, self.device = spec, device or "cuda:0"
+        self._keep = None
 
     def model(self):
         from transferable3d_torch.core import bins as bins_lib
@@ -3782,12 +3827,16 @@ class DPStep:
         return m
 
     def keep(self):
+        """The whole batch's keep mask, drawn once (33.5M numbers on the
+        host at B=256)."""
         from transferable3d_torch.models import layers
 
-        pts = self.spec["batch"]["points"]
-        return layers.dropout_keep_mask(
-            (pts.shape[0], pts.shape[1], 128), 0.5,
-            torch.Generator().manual_seed(self.spec["keep_seed"]))
+        if self._keep is None:
+            pts = self.spec["batch"]["points"]
+            self._keep = layers.dropout_keep_mask(
+                (pts.shape[0], pts.shape[1], 128), 0.5,
+                torch.Generator().manual_seed(self.spec["keep_seed"]))
+        return self._keep
 
     def state(self, model):
         from transferable3d_torch.train import schedules, train_loop
@@ -3877,7 +3926,6 @@ class DPStep:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / steps
         spent = [0.0]
-        orig = dist.all_reduce, dist.broadcast
 
         def timed(fn):
             def wrapped(*a, **kw):
@@ -3889,11 +3937,15 @@ class DPStep:
                 return out
             return wrapped
 
-        dist.all_reduce, dist.broadcast = map(timed, orig)
+        names = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
+        orig = [getattr(dist, n) for n in names]
+        for n, fn in zip(names, orig):
+            setattr(dist, n, timed(fn))
         try:
             step(state, rows)
         finally:
-            dist.all_reduce, dist.broadcast = orig
+            for n, fn in zip(names, orig):
+                setattr(dist, n, fn)
         return ms, spent[0] * 1e3
 
 
@@ -3911,7 +3963,9 @@ def dp_rank(rank, init_method, tmp, world, specs):
     rank 0 keeps the gradients, every rank its launches and K5-K7's
     sums."""
     from transferable3d_torch.parallel import mesh as mesh_lib
+    from transferable3d_torch.train.train_sup import f32_numerics
 
+    f32_numerics()  # as `main` sets them for the 1-rank steps
     mesh = mesh_lib.data_parallel_mesh(
         rank=rank, world_size=world, local_world_size=world,
         init_method=init_method)
@@ -3941,7 +3995,9 @@ def dp_nccl_rank(rank, init_method, tmp, spec):
     """Phase 30 (d): (a)'s step without a group and in a one-rank NCCL
     group on cuda:0, in one process."""
     from transferable3d_torch.parallel import mesh as mesh_lib
+    from transferable3d_torch.train.train_sup import f32_numerics
 
+    f32_numerics()
     step = DPStep(spec)
     alone = step()
     mesh = mesh_lib.data_parallel_mesh(
@@ -4011,20 +4067,20 @@ def dp_fails(r, limits):
     return out
 
 
-def dp_judge(what, limits, runs, controls):
+def dp_judge(what, limits, runs, controls, phase=30):
     """Every run and control with the limits it fails; every run (the
     witness among them) within the limits, every control outside one."""
-    print(f"phase 30 {what}; limits {limits}", flush=True)
+    print(f"phase {phase} {what}; limits {limits}", flush=True)
     for tag, r in {**runs, **controls}.items():
-        print(f"phase 30   {tag}: "
+        print(f"phase {phase}   {tag}: "
               + ", ".join(f"{k} {v:.5g}" for k, v in r.items())
               + f"; fails {dp_fails(r, limits) or 'no limit'}", flush=True)
     for tag, r in runs.items():
-        _check(not dp_fails(r, limits), f"phase 30 {what}: {tag} fails "
+        _check(not dp_fails(r, limits), f"phase {phase} {what}: {tag} fails "
                f"{dp_fails(r, limits)}")
     for tag, r in controls.items():
-        _check(bool(dp_fails(r, limits)), f"phase 30 {what}: the control "
-               f"{tag} passes every limit")
+        _check(bool(dp_fails(r, limits)), f"phase {phase} {what}: the "
+               f"control {tag} passes every limit")
 
 
 def data_parallel(args, dev, card: str):
@@ -4329,11 +4385,378 @@ def _data_parallel(args, dev, card: str):
           f"(drivers {t_drivers:.1f} s) {card}", flush=True)
 
 
+# Phase 31: points-axis sharding (`data_points_mesh`), D x P ranks on the
+# one card over gloo (a card each over NCCL where the machine has as many
+# cards): (a) (a)'s step of phase 30 on (2, 2); (b) (b)'s on (1, 2) and
+# (2, 2); (c) a v2 predict step on (1, 2). The runs of (a) and (b): the
+# sound step, then the controls (`_dp_faults`).
+PP_RUNS = [(), ("local_pool",), ("local_bn",), ("local_masking",),
+           ("box_grads_everywhere",)]
+PP_V1_LIMITS = DP_V1_LIMITS
+PP_V2_LIMITS = {**DP_V2_LIMITS, "norm": (0.9, 1.1)}
+
+
+def _pp_predict_spec(seed, dev):
+    """(c): a v2 bf16 model from `seed` with its BN running statistics
+    perturbed and its foreground logit shifted so that about half the
+    points are masked (as phase 3), and B seeded frustums."""
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.models import registry
+
+    gen = torch.Generator().manual_seed(seed)
+    model = registry.get_model("frustum_pointnets_v2", bins_lib.SUNRGBD,
+                               dtype=torch.bfloat16, device="cpu",
+                               generator=gen).eval()
+    _perturb_bn(model, gen)
+    batch = SyntheticFrustums(B, bins_lib.SUNRGBD, seed).get_batch(
+        list(range(B)))
+    card = copy.deepcopy(model).to(dev)
+    with torch.no_grad():
+        logits = card.seg_net(torch.as_tensor(batch["points"], device=dev),
+                              torch.as_tensor(batch["one_hot"], device=dev))
+        gap = (logits[..., 1] - logits[..., 0]).float().cpu()
+        model.seg_net.seg_out.bias[1] -= gap.median()
+    return {"state_dict": model.state_dict(), "batch": batch,
+            "pin": 1.0 + 4.0 * float(gap.abs().max())}
+
+
+def pp_predict(spec, device, faults=(), capture=None, pinned=False):
+    """(c): `make_predict_step` of the spec's model on `device`, on this
+    rank's block of the current mesh (none: the whole batch), with the
+    counters zeroed just before it; `pinned`: the foreground logit raised
+    by the spec's `pin`, so every point is masked. Returns the detections,
+    the rank's seg logits and the whole frustums' masks on the host, the
+    launches and (sound and unpinned) the step's ms after one untimed
+    call."""
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.models import registry
+    from transferable3d_torch.ops import _build
+    from transferable3d_torch.parallel import mesh as mesh_lib
+    from transferable3d_torch.train import train_loop
+
+    model = registry.get_model("frustum_pointnets_v2", bins_lib.SUNRGBD,
+                               dtype=torch.bfloat16, device=device)
+    model.load_state_dict(spec["state_dict"])
+    if pinned:
+        with torch.no_grad():
+            model.seg_net.seg_out.bias[1] += spec["pin"]
+    predict = train_loop.make_predict_step(model, bins_lib.SUNRGBD)
+    rows = mesh_lib.local_rows(spec["batch"])
+    seen = {}
+    hook = model.register_forward_hook(lambda mod, a, out: seen.update(
+        logits=out["seg_logits"].float().cpu(), mask=out["mask"].cpu()))
+    with _dp_faults(faults, model):
+        if capture:
+            capture(0, ())
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            out = predict(rows)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        finally:
+            hook.remove()
+            if capture:
+                capture(0, None)
+    timed = not faults and not pinned and capture is None
+    return {"dets": {k: v.cpu() for k, v in out.items()}, **seen,
+            "launches": launches,
+            "ms": _time_ms(lambda: predict(rows), 1, 5) if timed else None}
+
+
+def pp_rank(rank, init_method, tmp, stages):
+    """A rank process of phase 31. For each stage (world, points, jobs,
+    check_kernels) that it belongs to (rank < world), in turn: its
+    (world / points, points) mesh over every card (ranks that share a
+    card: gloo; a card each: NCCL), then for each job the train step's
+    runs of `PP_RUNS` and their times, or the predict step sound, with a
+    per-shard pool and with every point masked (`pp_predict`). The last
+    rank of a stage keeps every run; the others their launches, losses
+    and the sound run's gradients. With `check_kernels`, the last rank
+    also holds K1, K5-K9 of one more sound train step and K1, K2 of one
+    predict step, at its own shapes, to their plain twins
+    (`_study_kernels`). One set of processes serves every stage: a
+    process reaches the card once."""
+    from transferable3d_torch.train.train_sup import f32_numerics
+
+    f32_numerics()  # as `main` sets them for the 1-rank steps
+    outs = []
+    for i, (world, points, jobs, check) in enumerate(stages):
+        if rank >= world:
+            break
+        outs.append(_pp_stage(rank, f"{init_method}-{i}", world, points,
+                              jobs, check))
+    torch.save(outs, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _pp_stage(rank, init_method, world, points, jobs, check_kernels):
+    from transferable3d_torch.models import pointnet2
+    from transferable3d_torch.ops import fused_sa
+    from transferable3d_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.data_points_mesh(
+        world // points, points, rank=rank, world_size=world,
+        local_world_size=world, init_method=init_method)
+    cards = torch.cuda.device_count()
+    want = "gloo" if world > cards else "nccl"
+    _check(mesh.backend == want, f"{world} ranks on {cards} card(s) "
+           f"formed {mesh.backend}, not {want}")
+    last = rank == world - 1
+    out, t0 = {"seconds": {}}, time.perf_counter()
+    try:
+        with mesh_lib.use(mesh):
+            for tag, (kind, spec) in jobs.items():
+                out["seconds"][tag] = time.perf_counter() - t0
+                if kind == "predict":
+                    out[tag] = [pp_predict(spec, mesh.device),
+                                pp_predict(spec, mesh.device,
+                                           ("local_pool",)),
+                                pp_predict(spec, mesh.device, pinned=True)]
+                    continue
+                one = DPStep(spec, mesh.device)
+                runs = []
+                for faults in PP_RUNS:
+                    r = one(faults)
+                    if not last:
+                        r = {"launches": r["launches"], "loss": r["loss"],
+                             **({} if faults else {"grads": r["grads"]})}
+                    runs.append(r)
+                out[tag] = {"runs": runs, "times": one.times(steps=2)}
+            out["seconds"]["end"] = time.perf_counter() - t0
+            if check_kernels:
+                step_cap = _Capture(0, (
+                    (pointnet2, "farthest_point_sample"),
+                    (fused_sa, "sa_extract_cuda"),
+                    (fused_sa, "sa_fwd_step_cuda"),
+                    (fused_sa, "sa_bwd_step_cuda"),
+                    (fused_sa, "sa_bwd_step0_cuda")))
+                eval_cap = _Capture(0, (
+                    (pointnet2, "farthest_point_sample"),
+                    (fused_sa, "sa_infer")))
+                train_spec = next(sp for k, sp in jobs.values()
+                                  if k == "train" and "v2" in sp["name"])
+                step_cap(0, ())
+                try:
+                    launches = DPStep(train_spec, mesh.device)()["launches"]
+                finally:
+                    step_cap(0, None)
+                pp_predict(next(sp for k, sp in jobs.values()
+                                if k == "predict"), mesh.device,
+                           capture=eval_cap)
+                if last:
+                    _study_kernels(step_cap, eval_cap, launches, phase=31)
+                out["seconds"]["kernels"] = time.perf_counter() - t0
+    finally:
+        mesh_lib.destroy(mesh)
+    return out
+
+
+# (c)'s limits against the 1-rank step. The seg logits: the share that
+# is the same bits, and max |diff| over max |logit| (phase 5's limit
+# between the card and the CPU): a product at another shape rounds a
+# bf16 step otherwise here and there, and where that moves a frustum's
+# global max-pool every logit of the frustum moves (the card's first
+# readings: the ranks 0.9585 and 2.3-2.7e-2, the witness in two calls of
+# B / 2 the same, a per-shard pool 0.0000 and 3.2-3.4e-2). The masks:
+# the share of points that agree (0.99982; a per-shard pool 0.9931).
+PP_PREDICT_LIMITS = {"logits_same": 0.9, "logits": 0.03, "mask_agree": 0.999,
+                     "seg_conf": 0.01}
+
+
+def pp_predict_gate(ref, got, p, points, box_stages=True):
+    """(c)'s gate on rank p of the points axis against the 1-rank step
+    (`PP_PREDICT_LIMITS`): its seg logits against the 1-rank step's at its
+    point slice, the whole frustums' masks, `seg_conf` (a mean of the seg
+    probabilities) and, with `box_stages` (off for a witness whose box
+    stages run at other shapes), every other detection of a frustum whose
+    mask is the 1-rank step's bit-identical: the box stages see the same
+    object points at the same shapes. Returns the failing checks and the
+    readings."""
+    n = ref["logits"].shape[1] // points
+    lr = ref["logits"][:, p * n:(p + 1) * n]
+    conf = ref["dets"]["seg_conf"]
+    same = (got["mask"] == ref["mask"]).all(dim=1)
+    read = {"logits_same": float((got["logits"] == lr).float().mean()),
+            "logits": float((got["logits"] - lr).abs().max()
+                            / lr.abs().max()),
+            "mask_agree": float((got["mask"] == ref["mask"]).float().mean()),
+            "seg_conf": float((got["dets"]["seg_conf"] - conf).abs().max()
+                              / conf.abs().max()),
+            "frustums_same_mask": int(same.sum()),
+            "dets_differ": [k for k, v in ref["dets"].items()
+                            if k != "seg_conf" and not torch.equal(
+                                got["dets"][k][same], v[same])]}
+    lim = PP_PREDICT_LIMITS
+    bad = [k for k in lim if (read[k] < lim[k] if k in ("logits_same",
+                                                        "mask_agree")
+                              else read[k] > lim[k])]
+    if box_stages and (read["dets_differ"] or not same.any()):
+        bad.append("dets")
+    return bad, read
+
+
+def points_parallel(args, dev, card: str):
+    """Phase 31: points-axis sharding on the one card."""
+    with fused_sa_env(None):
+        _points_parallel(args, dev, card)
+
+
+def _points_parallel(args, dev, card: str):
+    import shutil
+
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.data import synthetic
+    from transferable3d_torch.data.provider import FrustumDataset
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sun = bins_lib.SUNRGBD
+    recs = synthetic.make_dataset(DP_V1_B, sun, seed=args.seed,
+                                  extra_channels=3)
+    batch_a = FrustumDataset(recs, sun, npoints=N, rotate_to_center=True,
+                             seed=args.seed).get_batch(list(range(DP_V1_B)))
+    recs = synthetic.make_dataset(DP_V2_B, sun, seed=args.seed + 1,
+                                  n_object=600, n_clutter=300)
+    batch_b = FrustumDataset(recs, sun, npoints=N, rotate_to_center=True,
+                             seed=args.seed).get_batch(list(range(DP_V2_B)))
+    specs = {"a": _dp_spec("frustum_pointnets_v1", batch_a, args.seed, dev),
+             "b": _dp_spec("frustum_pointnets_v2", batch_b, args.seed + 10,
+                           dev),
+             "c": _pp_predict_spec(args.seed + 20, dev)}
+    one, witness, times1 = {}, {}, {}
+    for tag in ("a", "b"):
+        step = DPStep(specs[tag])
+        one[tag] = step()
+        b = len(specs[tag]["batch"]["points"])
+        witness[tag] = step(order=np.r_[b // 2:b, 0:b // 2])
+        times1[tag] = step.times()
+    one["c"] = pp_predict(specs["c"], dev)
+    one["c pinned"] = pp_predict(specs["c"], dev, pinned=True)
+    print(f"phase 31 one rank's steps: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cards = torch.cuda.device_count()
+    stages = [(4, 2, {"a": ("train", specs["a"]), "b": ("train", specs["b"])},
+               False),
+              (2, 2, {"b": ("train", specs["b"]),
+                      "c": ("predict", specs["c"])}, True)]
+    t1 = time.perf_counter()
+    tmp = _spawn(pp_rank, 4, stages)
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(4)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    meshes = {}
+    for i, (world, points, jobs, check) in enumerate(stages):
+        meshes[(world // points, points)] = [outs[r][i] for r in range(world)]
+        also = ", the kernels against their twins" if check else ""
+        print(f"phase 31 the ({world // points}, {points}) mesh "
+              f"({sorted(jobs)}{also}): the last rank's seconds after "
+              "forming it: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in outs[world - 1][i][
+                      "seconds"].items()), flush=True)
+    print(f"phase 31 the ranks' processes: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    def where(world):
+        return (f"{world} ranks on {min(world, cards)} card(s), "
+                + ("a card each (NCCL)" if world <= cards else "gloo"))
+
+    # (a), (b): the step of the ranks against one rank's.
+    for tag, shape, limits, what in (
+            ("a", (2, 2), PP_V1_LIMITS, f"(a) config5, v1 bf16, "
+             f"B={DP_V1_B}, C=6"),
+            ("b", (1, 2), PP_V2_LIMITS, f"(b) v2 bf16 fused, B={DP_V2_B}, "
+             "C=4"),
+            ("b", (2, 2), PP_V2_LIMITS, f"(b) v2 bf16 fused, B={DP_V2_B}, "
+             "C=4")):
+        ranks = meshes[shape]
+        world = len(ranks)
+        runs = ranks[-1][tag]["runs"]
+        _check(bool(one[tag]["mask"].all()), f"phase 31 {tag}: the 1-rank "
+               "step's mask is not full (the margin did not pin it)")
+        _check(bool(runs[0]["mask"].all()), f"phase 31 {tag} {shape}: the "
+               "whole frustum's mask is not full")
+        for r in range(world):
+            _check(ranks[r][tag]["runs"][0]["loss"] == runs[0]["loss"],
+                   f"phase 31 {tag} {shape}: the ranks' losses differ")
+            same = all(torch.equal(g, runs[0]["grads"][k]) for k, g in
+                       ranks[r][tag]["runs"][0]["grads"].items())
+            _check(same, f"phase 31 {tag} {shape}: rank {r} holds another "
+                   "gradient than the last rank")
+        dp_judge(f"{what} on a {shape} mesh, {where(world)}", limits,
+                 {f"{shape} vs 1 rank": dp_readings(one[tag], runs[0]),
+                  "witness: 1 rank on the batch's halves swapped":
+                      dp_readings(one[tag], witness[tag])},
+                 {f"control: {f[0]}": dp_readings(one[tag], run)
+                  for f, run in zip(PP_RUNS[1:], runs[1:])}, phase=31)
+        want = {} if tag == "a" else {
+            "fps": 4, **{k: 8 for k, _, _ in FUSED_KERNELS}}
+        for r in range(world):
+            _expect_launches(ranks[r][tag]["runs"][0]["launches"], want)
+        ms, coll = ranks[0][tag]["times"]
+        print(f"times phase 31 {what} on a {shape} mesh, {where(world)}: "
+              f"{ms:.1f} ms a step (rank 0), of which collectives "
+              f"{coll:.1f} ms (the card synchronised around each); 1 rank "
+              f"{times1[tag][0]:.1f} ms a step {card}", flush=True)
+    _expect_launches(one["b"]["launches"], {"fps": 4, **{
+        k: 8 for k, _, _ in FUSED_KERNELS}})
+
+    # (c): the predict step on (1, 2) against one rank's: half the points
+    # masked (phase 3's setting), then every point; the witness is one
+    # rank on the batch in two calls of B / 2 (other product shapes).
+    ranks = meshes[(1, 2)]
+    _expect_launches(one["c"]["launches"], {"fps": 4, "sa_infer": 8})
+    _check(bool(one["c pinned"]["mask"].all()), "phase 31 (c): the pinned "
+           "1-rank step's mask is not full")
+    halves = [pp_predict({**specs["c"], "batch": {
+        k: v[i * B // 2:(i + 1) * B // 2] for k, v in
+        specs["c"]["batch"].items()}}, dev) for i in range(2)]
+    witness = {"dets": {k: torch.cat([h["dets"][k] for h in halves])
+                        for k in one["c"]["dets"]},
+               **{k: torch.cat([h[k] for h in halves])
+                  for k in ("logits", "mask")}}
+    results = []
+    for r, res in enumerate(ranks):
+        sound, local, pinned = res["c"]
+        for run in (sound, pinned):
+            _expect_launches(run["launches"], {"fps": 4, "sa_infer": 8})
+        for what, ref, got, control in (
+                ("half the points masked", one["c"], sound, False),
+                ("control local_pool", one["c"], local, True),
+                ("every point masked", one["c pinned"], pinned, False)):
+            results.append((f"rank {r}, {what}", control,
+                            *pp_predict_gate(ref, got, r, len(ranks))))
+    results.append(("witness: 1 rank in two calls of B / 2 (its box "
+                    "stages at B / 2)", False,
+                    *pp_predict_gate(one["c"], witness, 0, 1, False)))
+    print(f"phase 31 (c) limits {PP_PREDICT_LIMITS}", flush=True)
+    for what, control, bad, read in results:
+        print(f"phase 31 (c) v2 predict B={B} vs 1 rank, {what}: seg "
+              f"logits max|diff|/max {read['logits']:.4g} (bit-identical "
+              f"{read['logits_same']:.4f}), masks agree "
+              f"{read['mask_agree']:.5f}, {read['frustums_same_mask']} of "
+              f"{B} frustums with the same mask, their detections differ "
+              f"in {read['dets_differ']}, seg_conf {read['seg_conf']:.3g}; "
+              f"fails {bad}", flush=True)
+    for what, control, bad, read in results:
+        _check(bool(bad) == control, f"phase 31 (c) {what}: "
+               + (f"fails {bad}" if bad else "passes the gate"))
+        if what.endswith("every point masked"):
+            _check(read["frustums_same_mask"] == B, f"phase 31 (c) {what}: "
+                   "the masks are not the 1-rank step's")
+    print(f"times phase 31 (c) v2 predict B={B} on a (1, 2) mesh, "
+          f"{where(2)}: {ranks[0]['c'][0]['ms']:.1f} ms a step (rank 0); "
+          f"1 rank {one['c']['ms']:.1f} ms {card}", flush=True)
+    print(f"phase 31 points parallel: {time.perf_counter() - t0:.1f} s "
+          f"{card}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_parallel_only", action="store_true",
                     help="phases 1, 2 and 30 only (no kernels line)")
+    ap.add_argument("--points_parallel_only", action="store_true",
+                    help="phases 1, 2 and 31 only (no kernels line)")
     ap.add_argument("--world", type=int, default=DP_WORLD,
                     help="phase 30's ranks (on a machine with that many "
                     "cards: one a card, over NCCL)")
@@ -4346,10 +4769,11 @@ def main() -> None:
     from transferable3d_torch.ops import _build
 
     # Products accumulate in f32, as in the JAX package: no TF32, and no
-    # bf16 partial sums in cuBLAS's split reductions.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # bf16 partial sums in cuBLAS's split reductions (the rank processes
+    # of phases 30-31 set the same).
+    from transferable3d_torch.train.train_sup import f32_numerics
+
+    f32_numerics()
     dev = torch.device("cuda:0")
 
     # 1. the card
@@ -4375,6 +4799,9 @@ def main() -> None:
     if args.data_parallel_only:
         data_parallel(args, dev, card)
         return
+    if args.points_parallel_only:
+        points_parallel(args, dev, card)
+        return
     keep = {}
     with torch.no_grad():
         kernels = serve(args, dev, card, keep)
@@ -4387,6 +4814,7 @@ def main() -> None:
     study(args, dev, card)
     tools(args, dev, card, keep)
     data_parallel(args, dev, card)
+    points_parallel(args, dev, card)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

@@ -1,20 +1,25 @@
-"""Rank processes for tests/test_torch_parallel.py.
+"""Rank processes for tests/test_torch_parallel.py and
+tests/test_torch_points_parallel.py.
 
 Imports torch and the port only: the ranks are spawned processes, and
-they import no JAX. `Ranks(fn, world, *args)` spawns `world` ranks on
-the CPU (gloo, a `file://` rendezvous in a temporary directory, so
-concurrent test workers never share a port, and one torch thread a
-rank), each running `fn(mesh, *args)` under its mesh (`mesh.use`), and
-lets the caller work while they run. The step functions read the mesh
-where the drivers' steps read it (`mesh.active()`); called in the test's
-own process, without a mesh, they are the 1-rank step.
+they import no JAX. `Ranks(fn, world, *args, points=P)` spawns `world`
+ranks on the CPU (gloo, a `file://` rendezvous in a temporary directory,
+so concurrent test workers never share a port, and one torch thread a
+rank) on a 1-D mesh, or with P > 1 a (world / P, P) points mesh, each
+running `fn(mesh, *args)` under its mesh (`mesh.use`), and lets the
+caller work while they run. The step functions read the mesh where the
+drivers' steps read it (`mesh.active()`); called in the test's own
+process, without a mesh, they are the 1-rank step.
 
 The controls of the tests are switches of `steps`: `local_bn` leaves the
 BN statistics per rank (`mesh.batch_stats_sum` the identity),
 `local_denominators` the loss and metric denominators
 (`mesh.global_count` the identity), and `dgamma_twice` all-reduces the
 fused chain's BN gradients once before the gradient all-reduce adds
-them again.
+them again. On a points mesh: `local_pool` pools over the rank's points
+alone (`mesh.points_max` the local max), `local_masking` masks the
+rank's points alone (no gather in `point_cloud_masking`), and
+`box_grads_everywhere` sums the box stages' gradients over every rank.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch.distributed as dist
 from transferable3d_torch.core import bins as tbins
 from transferable3d_torch.models import boxpc as tboxpc
 from transferable3d_torch.models import layers as tlayers
-from transferable3d_torch.models import registry
+from transferable3d_torch.models import model_util, registry
 from transferable3d_torch.parallel import mesh as mesh_lib
 from transferable3d_torch.train import schedules as tsched
 from transferable3d_torch.train import semisup as tsemi
@@ -41,10 +46,15 @@ from transferable3d_torch.utils import bridge
 CFG = tbins.SUNRGBD
 
 
-def _entry(rank, world, fn, args, init_method, tmp):
+def _entry(rank, world, fn, args, init_method, tmp, points):
     torch.set_num_threads(1)
-    mesh = mesh_lib.data_parallel_mesh(["cpu"], rank=rank, world_size=world,
-                                       init_method=init_method)
+    if points > 1:
+        mesh = mesh_lib.data_points_mesh(
+            world // points, points, ["cpu"], rank=rank, world_size=world,
+            init_method=init_method)
+    else:
+        mesh = mesh_lib.data_parallel_mesh(
+            ["cpu"], rank=rank, world_size=world, init_method=init_method)
     try:
         with mesh_lib.use(mesh):
             out = fn(mesh, *args)
@@ -58,7 +68,7 @@ class Ranks:
     may work meanwhile. `results()` joins them (a rank that raised makes
     it raise) and returns their results in rank order."""
 
-    def __init__(self, fn, world: int, *args):
+    def __init__(self, fn, world: int, *args, points: int = 1):
         import torch.multiprocessing as mp
 
         self.world = world
@@ -67,7 +77,7 @@ class Ranks:
             _entry, nprocs=world, join=False, start_method="spawn",
             args=(world, fn, args,
                   "file://" + os.path.join(self.tmp, "rendezvous"),
-                  self.tmp))
+                  self.tmp, points))
 
     def results(self) -> list:
         try:
@@ -84,7 +94,22 @@ class Ranks:
 def controls(names, model=None):
     """The named faults (see the module docstring) for the block."""
     saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
-             mesh_lib.all_reduce_grads)
+             mesh_lib.all_reduce_grads, mesh_lib.points_max,
+             model_util.point_cloud_masking)
+    if "local_pool" in names:
+        mesh_lib.points_max = lambda x, dim: x.amax(dim=dim)
+    if "local_masking" in names:
+        def masking(*a, **kw):
+            gather = mesh_lib.points_gather
+            mesh_lib.points_gather = lambda x: x
+            try:
+                return saved[4](*a, **kw)
+            finally:
+                mesh_lib.points_gather = gather
+        model_util.point_cloud_masking = masking
+    if "box_grads_everywhere" in names:
+        mesh_lib.all_reduce_grads = lambda params, replicated=(): saved[2](
+            params)
     if "local_bn" in names:
         mesh_lib.batch_stats_sum = lambda s, s2, rows: (s, s2, rows)
     if "local_denominators" in names:
@@ -97,16 +122,17 @@ def controls(names, model=None):
                  for p in (getattr(m, f"bn_{i}").scale,
                            getattr(m, f"bn_{i}").bias)]
 
-        def all_reduce_grads(params):
+        def all_reduce_grads(params, replicated=()):
             for p in twice:
                 dist.all_reduce(p.grad)
-            saved[2](params)
+            saved[2](params, replicated)
         mesh_lib.all_reduce_grads = all_reduce_grads
     try:
         yield
     finally:
         (mesh_lib.batch_stats_sum, mesh_lib.global_count,
-         mesh_lib.all_reduce_grads) = saved
+         mesh_lib.all_reduce_grads, mesh_lib.points_max,
+         model_util.point_cloud_masking) = saved
 
 
 @contextlib.contextmanager
@@ -123,11 +149,18 @@ def keep_masks(masks):
     assert not queue, "a keep mask was not drawn"
 
 
-def _permuted(batch, keep, order):
-    if order is None:
-        return batch, keep
-    return ({k: v[order] for k, v in batch.items()},
-            [m[torch.from_numpy(order)] for m in keep])
+def _permuted(batch, keep, order, points_order=None):
+    """The batch and keep masks with the frustums in `order` and each
+    frustum's points in `points_order` (the arrays that hold points:
+    `points`, `seg`)."""
+    if order is not None:
+        batch = {k: v[order] for k, v in batch.items()}
+        keep = [m[torch.from_numpy(order)] for m in keep]
+    if points_order is not None:
+        batch = {k: v[:, points_order] if k in ("points", "seg") else v
+                 for k, v in batch.items()}
+        keep = [m[:, torch.from_numpy(points_order)] for m in keep]
+    return batch, keep
 
 
 def snap_to_grid(mod, args):
@@ -196,15 +229,17 @@ def permuted_draws(order):
          tlayers.dropout_keep_mask) = saved
 
 
-def train_step(spec, faults=(), order=None):
+def train_step(spec, faults=(), order=None, points_order=None):
     """One `make_train_step` of `spec` (model name, dtype, state_dict,
     the global numpy batch, the global keep mask, nobj) on this rank's
-    rows of the current mesh (none: one rank, the whole batch), the
-    frustums in `order`, with the named faults."""
+    block of the current mesh (none: one rank, the whole batch), the
+    frustums in `order` and their points in `points_order`, with the
+    named faults."""
     if spec.get("fused"):
         os.environ.pop("T3D_FUSED_SA", None)
     model = _model(spec)
-    batch, keep = _permuted(spec["batch"], [spec["keep"]], order)
+    batch, keep = _permuted(spec["batch"], [spec["keep"]], order,
+                            points_order)
     b = len(batch["points"])
     lr = tsched.exponential_staircase_lr(batch_size=b)
     bn = tsched.bn_momentum_schedule(batch_size=b)
@@ -218,6 +253,19 @@ def train_step(spec, faults=(), order=None):
         _, metrics = step(state, mesh_lib.local_rows(batch))
     hook.remove()
     return _outcome(model, metrics, seen)
+
+
+def predict_step(spec, faults=()):
+    """`make_predict_step` of `spec`'s model (eval mode) on this rank's
+    block of the current mesh, with the named faults: the detections as
+    numpy arrays."""
+    if spec.get("fused"):
+        os.environ.pop("T3D_FUSED_SA", None)
+    model = _model(spec)
+    step = tloop.make_predict_step(model, CFG)
+    with controls(faults, model):
+        out = step(mesh_lib.local_rows(spec["batch"]))
+    return {k: v.numpy() for k, v in out.items()}
 
 
 def semisup_step(spec, faults=(), order=None):
@@ -297,3 +345,35 @@ def sharding(mesh, batch, state_dict):
                            model.state_dict().items()},
             "step": state.step,
             "generator": state.generator.get_state()}
+
+
+def points_sharding(mesh, batch):
+    """This rank's coordinates, `shard_batch` block and `local_rows`
+    block of a numpy batch."""
+    return {"coords": mesh.coords,
+            "rows": {k: v.numpy() for k, v in
+                     mesh_lib.shard_batch(batch, mesh).items()},
+            "local": {k: np.asarray(v) for k, v in
+                      mesh_lib.local_rows(batch).items()}}
+
+
+def collectives(mesh):
+    """On a (1, 2) mesh: `points_max` of a [4, 8, 3] tensor whose maxima
+    tie within a shard and across the two shards, and `points_gather`,
+    each with the gradient of the rank's share (a half) of sum(w * y)."""
+    x = torch.zeros(4, 8, 3)
+    x[:, 1] = 2.0           # a tie across the shards (points 1 and 5)
+    x[:, 5] = 2.0
+    x[0, 6, 0] = 3.0        # a tie within shard 1 (points 6 and 7)
+    x[0, 7, 0] = 3.0
+    x[1, 2, 1] = 5.0        # one maximum on shard 0
+    w = torch.arange(12.0).reshape(4, 3) / 4 + 0.25
+    v = torch.arange(96.0).reshape(4, 8, 3) / 8
+    own = mesh_lib.points_slice(x).clone().requires_grad_(True)
+    y = mesh_lib.points_max(own, dim=1)
+    (torch.sum(w * y) / 2).backward()
+    mine = mesh_lib.points_slice(v).clone().requires_grad_(True)
+    whole = mesh_lib.points_gather(mine)
+    (torch.sum(v * whole) / 2).backward()
+    return {"max": y.detach(), "dmax": own.grad, "gather": whole.detach(),
+            "dgather": mine.grad, "x": x, "w": w, "v": v}

@@ -33,6 +33,7 @@ from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.models import layers, model_util
 from transferable3d_torch.models.layers import (Dense, MLPHead, PointMLP,
                                                 ScheduledBatchNorm)
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 class InstanceSegNetV1(nn.Module):
@@ -123,7 +124,14 @@ class FrustumPointNetV1(nn.Module):
     """Full 3-stage pipeline -> the end_points dict of the JAX model.
 
     Weights are drawn on the CPU from `generator` (default: a generator
-    seeded with 0) and then moved to `device`."""
+    seeded with 0) and then moved to `device`. On a (data, points) mesh
+    the seg net runs on the rank's points and the stages named in
+    `points_replicated` on the whole frustum's object points, under
+    `mesh.replicated_over_points` (their gradients are summed over the
+    data group); `seg_logits` are the rank's, `mask` the whole
+    frustum's."""
+
+    points_replicated = ("tnet", "box_net")
 
     def __init__(self, cfg: bins_lib.BinConfig, *, dtype=torch.float32,
                  num_object_point: int = model_util.NUM_OBJECT_POINT,
@@ -147,10 +155,12 @@ class FrustumPointNetV1(nn.Module):
         seg_logits = self.seg_net(points, one_hot, bn_momentum, generator)
         masked = model_util.point_cloud_masking(points, seg_logits,
                                                 self.num_object_point)
-        delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)
-        stage1_center = delta_c1 + masked.mask_centroid
-        obj_recentered = masked.object_points - delta_c1[:, None, :]
-        box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
+        # The box stages see only the whole frustum's object points.
+        with mesh_lib.replicated_over_points():
+            delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)
+            stage1_center = delta_c1 + masked.mask_centroid
+            obj_recentered = masked.object_points - delta_c1[:, None, :]
+            box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
         end_points = model_util.parse_box_output(box_out, self.cfg)
         end_points["seg_logits"] = seg_logits
         end_points["mask"] = masked.mask
@@ -177,6 +187,7 @@ class BoxEstimationOnly(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """`generator` is unused (the model has no dropout); it is taken
         so that the train step calls every model alike."""
+        mesh_lib.require_points_axis_free("BoxEstimationOnly")
         xyz = points[..., :3]
         centroid = xyz.mean(dim=1)                            # [B, 3]
         box_out = self.box_net(xyz - centroid[:, None, :], one_hot,

@@ -30,6 +30,7 @@ from transferable3d_torch.models.layers import Dense, MLPHead, PointMLP
 from transferable3d_torch.models.pointnet2 import (FeaturePropagation,
                                                   SetAbstraction,
                                                   SetAbstractionMSG)
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 class InstanceSegNetV2(nn.Module):
@@ -68,9 +69,14 @@ class InstanceSegNetV2(nn.Module):
         xyz3, f3 = self.sa3(xyz2, f2, bn_momentum)
         g = torch.cat([f3, one_hot.to(f3.dtype)[:, None, :]], dim=-1)
         u2 = self.fp1(xyz2, xyz3, f2, g, bn_momentum)
-        u1 = self.fp2(xyz1, xyz2, f1, u2, bn_momentum)
+        # On a points mesh every level holds the rank's slice of its
+        # points (SA3's one point whole): FP2 and FP3 gather the coarser
+        # level.
+        whole = mesh_lib.points_gather
+        u1 = self.fp2(xyz1, whole(xyz2), f1, whole(u2), bn_momentum)
         skip = points if feats is not None else xyz
-        u0 = self.fp3(xyz, xyz1, skip.to(self.dtype), u1, bn_momentum)
+        u0 = self.fp3(xyz, whole(xyz1), skip.to(self.dtype), whole(u1),
+                      bn_momentum)
         x = self.head_mlp(u0, bn_momentum)
         if self.training:
             if generator is None:
@@ -104,7 +110,10 @@ class FrustumPointNetV2(nn.Module):
     """Full v2 pipeline -> the end_points dict of the JAX model.
 
     Weights are drawn on the CPU from `generator` (default: a generator
-    seeded with 0) and then moved to `device`."""
+    seeded with 0) and then moved to `device`. On a (data, points) mesh
+    as `FrustumPointNetV1`."""
+
+    points_replicated = ("tnet", "box_net")
 
     def __init__(self, cfg: bins_lib.BinConfig, *, dtype=torch.float32,
                  num_object_point: int = model_util.NUM_OBJECT_POINT,
@@ -128,10 +137,12 @@ class FrustumPointNetV2(nn.Module):
         seg_logits = self.seg_net(points, one_hot, bn_momentum, generator)
         masked = model_util.point_cloud_masking(points, seg_logits,
                                                 self.num_object_point)
-        delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)
-        stage1_center = delta_c1 + masked.mask_centroid
-        obj_recentered = masked.object_points - delta_c1[:, None, :]
-        box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
+        # The box stages see only the whole frustum's object points.
+        with mesh_lib.replicated_over_points():
+            delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)
+            stage1_center = delta_c1 + masked.mask_centroid
+            obj_recentered = masked.object_points - delta_c1[:, None, :]
+            box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
         end_points = model_util.parse_box_output(box_out, self.cfg)
         end_points["seg_logits"] = seg_logits
         end_points["mask"] = masked.mask

@@ -104,7 +104,7 @@ class ScheduledBatchNorm(nn.Module):
 
 class PointMLP(nn.Module):
     """Shared per-point MLP over [..., C]: (Dense -> BN -> ReLU) per layer,
-    optionally ending in a max-pool over axis 1."""
+    optionally ending in a max-pool over axis 1 (`masked_max_pool`)."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
                  pool: bool = False, dtype=torch.float32, device=None,
@@ -184,18 +184,22 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
     """flax `nn.Dropout(rate)` in train mode: where(keep, x / (1 - rate),
     0); at rate 0.5 the scaling by 2 is exact in bf16. Under data
     parallelism (axis 0 the batch) the mask is drawn for the whole batch
-    and the rank keeps its own rows, as the 1-rank step draws it."""
-    shape = (x.shape[0] * mesh_lib.world_size(), *x.shape[1:])
-    keep = mesh_lib.local_rows(dropout_keep_mask(shape, rate, generator))
+    and the rank keeps its own rows, and on a points mesh, for a
+    per-point x ([B, N, C]), its point slice: the 1-rank step's mask."""
+    per_point = x.dim() > 2
+    keep = mesh_lib.local_block(dropout_keep_mask(
+        mesh_lib.whole_shape(x.shape, per_point), rate, generator),
+        per_point)
     keep = keep.to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def masked_max_pool(x: torch.Tensor, mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Max-pool [B, N, C] over the points axis; points with mask 0 never
-    win."""
+    """Max-pool [B, N, C] over the points axis (across the points group
+    where that axis is sharded, `mesh.points_max`); points with mask 0
+    never win."""
     if mask is not None:
         neg = torch.tensor(-1e9, dtype=x.dtype, device=x.device)
         x = torch.where(mask[..., None] > 0, x, neg)
-    return x.amax(dim=1)
+    return mesh_lib.points_max(x, dim=1)

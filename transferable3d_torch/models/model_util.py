@@ -11,7 +11,10 @@ the ground-truth (heading bin, size cluster) slot only, as the JAX
 Under data parallelism (`parallel/mesh.py`) every mean over the batch is
 the sum over the rank's rows over the whole batch's count
 (`mesh_lib.global_count`): each rank's loss and metrics are its share of
-the whole batch's, and the shares add up to it.
+the whole batch's, and the shares add up to it. On a points mesh the
+seg terms are shares over every rank (B x N split over both axes) and
+the per-frustum terms over the data group (`replicated_over_points`);
+the masking sees the whole frustum.
 """
 
 from __future__ import annotations
@@ -41,9 +44,13 @@ def point_cloud_masking(points: torch.Tensor, seg_logits: torch.Tensor,
     """Hard mask from the seg argmax, masked xyz centroid, and exactly
     `num_object_point` masked points translated by -centroid: the first
     ones in index order, wrapping cyclically past the masked count; an
-    empty mask takes point 0 (and centroid 0)."""
-    xyz = points[..., :3]
-    mask = (seg_logits[..., 1] > seg_logits[..., 0]).float()
+    empty mask takes point 0 (and centroid 0). On a points mesh the
+    points group's xyz and masks are gathered first, so every rank of
+    the group picks the 1-rank step's points and returns the whole
+    frustum's mask."""
+    xyz = mesh_lib.points_gather(points[..., :3])
+    mask = mesh_lib.points_gather(
+        (seg_logits[..., 1] > seg_logits[..., 0]).float())
     count = mask.sum(dim=1, keepdim=True)                      # [B, 1]
     centroid = ((xyz * mask[..., None]).sum(dim=1)
                 / torch.clamp_min(count, 1.0))                 # [B, 3]
@@ -166,8 +173,10 @@ def get_loss(end_points: Dict, labels: Labels, cfg: bins_lib.BinConfig,
     w = (torch.ones(b, dtype=torch.float32, device=dev)
          if example_weights is None else example_weights.float())
     # The whole batch's weight: summed over the ranks under data
-    # parallelism, so each rank's terms are its share of the global mean.
-    denom = torch.clamp_min(mesh_lib.global_count(torch.sum(w)), 1e-6)
+    # parallelism (a frustum's weight once: over the data group of a
+    # points mesh), so each rank's terms are its share of the global mean.
+    with mesh_lib.replicated_over_points():
+        denom = torch.clamp_min(mesh_lib.global_count(torch.sum(w)), 1e-6)
 
     def wmean(per_example):
         return torch.sum(per_example * w) / denom
@@ -186,8 +195,8 @@ def get_loss(end_points: Dict, labels: Labels, cfg: bins_lib.BinConfig,
         picked = torch.sum(
             logits * F.one_hot(lab.long(), logits.shape[-1]).float(), dim=-1)
         per = logz - picked
-        if per.dim() > 1:
-            per = torch.mean(per, dim=tuple(range(1, per.dim())))
+        if per.dim() > 1:  # the seg terms: a mean over the frustum's points
+            per = mesh_lib.mean_over_points(per)
         return wmean(per)
 
     def dist_huber(pred, gt, delta):
@@ -237,12 +246,7 @@ def get_loss(end_points: Dict, labels: Labels, cfg: bins_lib.BinConfig,
     corner_dist = torch.minimum(d.mean(dim=1), d_flip.mean(dim=1))
     corner_loss = whuber(corner_dist, 1.0)
 
-    box_loss = (center_loss + stage1_loss + heading_cls_loss + size_cls_loss
-                + 20.0 * heading_res_loss + 20.0 * size_res_loss
-                + corner_loss_weight * corner_loss)
-    total = seg_weight * seg_loss + box_loss_weight * box_loss
-    return {
-        "total_loss": total,
+    terms = {
         "seg_loss": seg_loss,
         "center_loss": center_loss,
         "stage1_center_loss": stage1_loss,
@@ -252,6 +256,21 @@ def get_loss(end_points: Dict, labels: Labels, cfg: bins_lib.BinConfig,
         "size_residual_loss": size_res_loss,
         "corner_loss": corner_loss,
     }
+    return {"total_loss": total_loss(terms, box_loss_weight,
+                                     corner_loss_weight, seg_weight),
+            **terms}
+
+
+def total_loss(terms: Dict[str, torch.Tensor], box_loss_weight: float = 1.0,
+               corner_loss_weight: float = 10.0, seg_weight: float = 1.0
+               ) -> torch.Tensor:
+    """`get_loss`'s total from its terms."""
+    box_loss = (terms["center_loss"] + terms["stage1_center_loss"]
+                + terms["heading_class_loss"] + terms["size_class_loss"]
+                + 20.0 * terms["heading_residual_loss"]
+                + 20.0 * terms["size_residual_loss"]
+                + corner_loss_weight * terms["corner_loss"])
+    return seg_weight * terms["seg_loss"] + box_loss_weight * box_loss
 
 
 def compute_metrics(end_points: Dict, labels: Labels,
@@ -271,11 +290,12 @@ def compute_metrics(end_points: Dict, labels: Labels,
                                      labels.size_residual, cfg)
     iou3d, ioubev = geometry.box3d_iou(center, size, heading,
                                        labels.center, gt_size, gt_heading)
-    return {
-        "seg_accuracy": seg_acc,
-        "iou3d_mean": mesh_lib.batch_mean(iou3d),
-        "ioubev_mean": mesh_lib.batch_mean(ioubev),
-        "iou3d_ge_025": mesh_lib.batch_mean((iou3d >= 0.25).float()),
-        "iou3d_ge_05": mesh_lib.batch_mean((iou3d >= 0.5).float()),
-        "iou3d_ge_07": mesh_lib.batch_mean((iou3d >= 0.7).float()),
-    }
+    with mesh_lib.replicated_over_points():  # means over the frustums
+        return {
+            "seg_accuracy": seg_acc,
+            "iou3d_mean": mesh_lib.batch_mean(iou3d),
+            "ioubev_mean": mesh_lib.batch_mean(ioubev),
+            "iou3d_ge_025": mesh_lib.batch_mean((iou3d >= 0.25).float()),
+            "iou3d_ge_05": mesh_lib.batch_mean((iou3d >= 0.5).float()),
+            "iou3d_ge_07": mesh_lib.batch_mean((iou3d >= 0.7).float()),
+        }

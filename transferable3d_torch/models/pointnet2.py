@@ -20,6 +20,17 @@ max over K (pointnet2.py:146-162; the JAX package additionally requires
 a TPU for the fused branch, the port's runs on any device). Both branches hold the same parameters and
 buffers and update the BN running statistics alike.
 Parameter names match the flax tree (`dense_i`, `bn_i`, `mlp`, `mlp_i`).
+
+On a points mesh (`parallel/mesh.py`, the sharded scope) every level's
+xyz and features are the rank's slice of the level's points. An SA
+gathers the level's xyz, runs FPS (K1) on the whole (every rank of the
+points group picks the same centroids) and keeps the rank's slice of
+the centroids; each grouped scale groups from the whole xyz and the
+gathered payload `pf` (Dense0 of the rank's points), so K5-K9 and K2
+run unchanged on the rank's centroids, and K9's `d_pf` over the whole
+set returns through the gather's backward. The `group_all` SA pools
+across the group (`mesh.points_max`). Off a points mesh the gathers and
+slices are the identity.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from transferable3d_torch.ops.grouping import (ball_query, group_points,
 from transferable3d_torch.ops.interpolate import three_interpolate, three_nn
 from transferable3d_torch.ops.sampling import (farthest_point_sample,
                                               gather_points)
+from transferable3d_torch.parallel import mesh as mesh_lib
 
 
 def sample_and_group(npoint: int, radius: float, nsample: int,
@@ -59,7 +71,9 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
 class GroupedPointMLP(nn.Module):
     """Ball-query grouping + per-group shared MLP + max-pool over K.
 
-    `in_channels` is the feature width besides xyz (0 for none)."""
+    `in_channels` is the feature width besides xyz (0 for none). `xyz`
+    is the whole support set; `feats` (and `new_xyz`) are the rank's
+    slice on a points mesh (module docstring)."""
 
     def __init__(self, in_channels: int, features: Sequence[int],
                  radius: float, nsample: int, *, dtype=torch.float32,
@@ -80,9 +94,11 @@ class GroupedPointMLP(nn.Module):
 
     def forward(self, new_xyz, xyz, feats, bn_momentum: float = 0.9):
         dense0 = self.dense_0
-        src = (xyz if feats is None
-               else torch.cat([xyz, feats.to(xyz.dtype)], dim=-1))
-        pf = dense0(src.to(self.dtype))  # [B, N, F1] (incl. bias)
+        own = mesh_lib.points_slice(xyz)
+        src = (own if feats is None
+               else torch.cat([own, feats.to(xyz.dtype)], dim=-1))
+        # [B, N, F1] (incl. bias), of every point of the support set
+        pf = mesh_lib.points_gather(dense0(src.to(self.dtype)))
         # Centroid term -c_s @ W0[:3]: the shared Dense on a zero-padded
         # centroid minus the Dense of zeros (the bias cancels).
         b, s, _ = new_xyz.shape
@@ -128,6 +144,14 @@ class GroupedPointMLP(nn.Module):
         return pooled
 
 
+def _centroids(xyz, npoint):
+    """FPS centroids of the level's points and the whole level: on a
+    points mesh the gathered xyz, the rank's slice of the centroids."""
+    whole = mesh_lib.points_gather(xyz)
+    new_xyz = gather_points(whole, farthest_point_sample(whole, npoint))
+    return mesh_lib.points_slice(new_xyz), whole
+
+
 class SetAbstraction(nn.Module):
     """Single-scale SA: FPS -> ball query -> grouped MLP -> max-pool;
     `group_all` collapses to one global group."""
@@ -156,9 +180,9 @@ class SetAbstraction(nn.Module):
             new_xyz = torch.zeros(xyz.shape[0], 1, 3, dtype=xyz.dtype,
                                   device=xyz.device)
             x = self.mlp(grouped[:, None].to(self.dtype), bn_momentum)
-            return new_xyz, x.amax(dim=2)
-        new_xyz = gather_points(xyz, farthest_point_sample(xyz, self.npoint))
-        return new_xyz, self.mlp(new_xyz, xyz, features, bn_momentum)
+            return new_xyz, mesh_lib.points_max(x, dim=2)
+        new_xyz, whole = _centroids(xyz, self.npoint)
+        return new_xyz, self.mlp(new_xyz, whole, features, bn_momentum)
 
 
 class SetAbstractionMSG(nn.Module):
@@ -178,8 +202,8 @@ class SetAbstractionMSG(nn.Module):
         self.out_channels = sum(m[-1] for m in mlps)
 
     def forward(self, xyz, features, bn_momentum: float = 0.9):
-        new_xyz = gather_points(xyz, farthest_point_sample(xyz, self.npoint))
-        outs = [getattr(self, f"mlp_{i}")(new_xyz, xyz, features,
+        new_xyz, whole = _centroids(xyz, self.npoint)
+        outs = [getattr(self, f"mlp_{i}")(new_xyz, whole, features,
                                           bn_momentum)
                 for i in range(self.scales)]
         return new_xyz, torch.cat(outs, dim=-1)

@@ -144,6 +144,7 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
 
     def step(state: train_loop.TrainState, batch: Dict
              ) -> Tuple[train_loop.TrainState, Dict]:
+        mesh_lib.require_points_axis_free("the BoxPC step")
         model = state.model
         device = next(model.parameters()).device
         batch = train_loop.batch_to_device(batch, device)
@@ -462,6 +463,7 @@ def make_semisup_train_step(cfg: bins_lib.BinConfig,
 
     def step(state: SemisupState, strong: Dict, weak: Dict
              ) -> Tuple[SemisupState, Dict]:
+        mesh_lib.require_points_axis_free("the semi-supervised step")
         det = state.detector
         model = det.model
         device = next(model.parameters()).device

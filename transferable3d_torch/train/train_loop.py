@@ -25,7 +25,11 @@ statistics, dropout masks and loss denominators are the whole batch's;
 after the backward one all-reduce sums the gradients (the whole-batch
 gradient, so the clip norm is the global one on every rank), and one
 more sums the metrics. The step then computes on W ranks
-what it computes on one rank on the whole batch.
+what it computes on one rank on the whole batch. On a (data, points)
+mesh the batch is the rank's block (rows and point slice): the seg
+net's gradients are summed over every rank, those of the model's
+`points_replicated` stages over the data group (`all_reduce_grads`),
+and each metric over its own scope (`_reduce_metrics`).
 """
 
 from __future__ import annotations
@@ -196,6 +200,35 @@ def _losses(cfg, step_cfg: StepConfig, batch, end_points,
         example_weights=weights)
 
 
+# The metrics that are means over every point of the batch (the seg
+# net's, split over both axes of a points mesh); the others are means
+# over the frustums, and the total mixes both.
+_POINT_METRICS = ("seg_loss", "seg_accuracy")
+
+
+def _reduce_metrics(metrics: Dict, step_cfg: StepConfig) -> Dict:
+    """`mesh.reduce_metrics`; on a points mesh each metric over its own
+    scope and the total again from the reduced terms."""
+    if mesh_lib.points_size() == 1:
+        return mesh_lib.reduce_metrics(metrics)
+    out = mesh_lib.reduce_metrics(
+        {k: metrics[k] for k in _POINT_METRICS if k in metrics})
+    with mesh_lib.replicated_over_points():
+        out.update(mesh_lib.reduce_metrics(
+            {k: v for k, v in metrics.items()
+             if k not in _POINT_METRICS and k != "total_loss"}))
+    out["total_loss"] = model_util.total_loss(
+        out, step_cfg.box_loss_weight, step_cfg.corner_loss_weight)
+    return {k: out[k] for k in metrics}
+
+
+def _points_replicated(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The parameters of the model's stages that run replicated over the
+    points group (`points_replicated`, module names)."""
+    return [p for name in getattr(model, "points_replicated", ())
+            for p in getattr(model, name).parameters()]
+
+
 def make_train_step(cfg: bins_lib.BinConfig,
                     lr_schedule: Callable[[int], float],
                     bn_schedule: Callable[[int], float],
@@ -224,7 +257,8 @@ def make_train_step(cfg: bins_lib.BinConfig,
                            generator=state.generator)
         losses = _losses(cfg, step_cfg, batch, end_points, True)
         losses["total_loss"].backward()
-        mesh_lib.all_reduce_grads(state.optimizer.params)
+        mesh_lib.all_reduce_grads(state.optimizer.params,
+                                  replicated=_points_replicated(model))
         state.optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         if step_cfg.compute_iou_metrics:
@@ -233,7 +267,7 @@ def make_train_step(cfg: bins_lib.BinConfig,
                     {k: v.detach() for k, v in end_points.items()},
                     labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
-        metrics = mesh_lib.reduce_metrics(metrics)
+        metrics = _reduce_metrics(metrics, step_cfg)
         metrics["lr"] = lr_schedule(state.step)
         metrics["bn_momentum"] = bn_momentum
         state.step += 1
@@ -260,7 +294,7 @@ def make_eval_step(cfg: bins_lib.BinConfig,
                 metrics.update(model_util.compute_metrics(
                     end_points, labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
-        return mesh_lib.reduce_metrics(metrics)
+        return _reduce_metrics(metrics, step_cfg)
 
     return step
 
@@ -275,6 +309,8 @@ def make_predict_step(model: torch.nn.Module, cfg: bins_lib.BinConfig
     The step takes a batch dict with `points` [B, N, C], `one_hot`
     [B, K] and optionally `class_idx` [B] (numpy arrays or tensors) and
     runs the model in eval mode without autograd on the model's device.
+    Under a mesh the batch is the rank's block, and every rank returns
+    the whole frustums' detections of its rows.
     """
     device = next(model.parameters()).device
 
@@ -291,7 +327,8 @@ def make_predict_step(model: torch.nn.Module, cfg: bins_lib.BinConfig
             end_points = model(points, one_hot)
             center, size, heading, hcls, scls = model_util.decode_box(
                 end_points, cfg, class_idx=class_idx)
-            seg_prob = torch.softmax(end_points["seg_logits"], dim=-1)[..., 1]
+            seg_prob = mesh_lib.points_gather(
+                torch.softmax(end_points["seg_logits"], dim=-1)[..., 1])
             mask = end_points["mask"]
             heading_prob = torch.softmax(
                 end_points["heading_scores"], dim=-1).amax(dim=-1)
