@@ -301,6 +301,34 @@ gloo (NCCL takes a card a rank), spawned with a `file://` rendezvous:
      their plain twins as phase 28 does. Step and collective times
      beside one rank's. `--points_parallel_only` runs phases 1, 2 and 31
      alone.
+ 32. the rest of the points mesh, four rank processes as in phase 31,
+     serving three meshes in turn: (a) the BoxPC step (f32, config 4's
+     widths: N=1024, C=6, B=32; the draws from a CPU generator of one
+     seed) on (2, 2) and (1, 2); (b) the phase-B step of phase 25's
+     detector (v2 bf16 fused, config 4's widths, 32 strong and 32 weak
+     frustums on the 1/256 grid, every point masked past a margin, the
+     box net's input snapped, both passes' keep masks injected, a frozen
+     BoxPC, the trust gate open) on (2, 2) and (1, 2); (c)
+     `BoxEstimationOnly` (f32, config 1's widths: N=512, chair, B=32) on
+     (2, 2); each against the 1-rank step at `PT_LIMITS` (the loss, the
+     gradient cosines per net, the BN buffers, the gradient norm),
+     beside a witness (the 1-rank step on each frustum's point halves
+     swapped, in (b) on the batch's halves swapped) and the controls
+     `local_pool` and `local_bn`, which must each fail one; (b) on (1,
+     2) also at `PT_BOX_LIMITS` (`box_cot`: the cotangent of the
+     predicted box from the weak losses on the rank's rows) beside a
+     witness (the weak losses on each weak frustum's point halves
+     swapped) and the control `box_cotangent_unsummed` (BoxPC's
+     cotangent of the box left unsummed over the points group), which
+     must fail it; every rank the same loss and gradient; K1 8, K5-K7 16
+     and K8/K9 10 a rank
+     in (b), nothing in (a) and (c); the last (1, 2) rank holds K1, K5-K9
+     of one (b) step and K1, K2 of a predict step on its weak block, at
+     its own shapes, to their plain twins. Then the large N: a v1 bf16
+     step at B=32, N=16,384, C=6 on one rank and on (1, 4) (4,096 points
+     a frustum a rank) within `PP_V1_LIMITS` of one rank, each rank's
+     step time and peak device memory. `--points_transfer_only` runs
+     phases 1, 2 and 32 alone.
 Every kernel's time stands beside its bound: the least time the card
 could take for the same bytes (each input read once, each output written
 once) and operations at the published peaks; K9's member buffer and
@@ -3749,7 +3777,9 @@ def _dp_faults(names, model):
     again); on a points mesh `local_pool` (every max over points on the
     rank's points alone), `local_masking` (the masking on the rank's
     points alone) and `box_grads_everywhere` (the box stages' gradients
-    summed over every rank, not over the data group)."""
+    summed over every rank, not over the data group) and
+    `box_cotangent_unsummed` (BoxPC's cotangent of the box it reads on the
+    rank's points left unsummed over the points group)."""
     import torch.distributed as dist
 
     from transferable3d_torch.models import model_util
@@ -3758,7 +3788,9 @@ def _dp_faults(names, model):
 
     saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
              mesh_lib.all_reduce_grads, mesh_lib.points_max,
-             model_util.point_cloud_masking)
+             model_util.point_cloud_masking, mesh_lib.from_replicated)
+    if "box_cotangent_unsummed" in names:
+        mesh_lib.from_replicated = lambda x: x
     if "local_bn" in names:
         mesh_lib.batch_stats_sum = lambda s, s2, rows: (s, s2, rows)
     if "local_denominators" in names:
@@ -3793,7 +3825,7 @@ def _dp_faults(names, model):
     finally:
         (mesh_lib.batch_stats_sum, mesh_lib.global_count,
          mesh_lib.all_reduce_grads, mesh_lib.points_max,
-         model_util.point_cloud_masking) = saved
+         model_util.point_cloud_masking, mesh_lib.from_replicated) = saved
 
 
 class DPStep:
@@ -4030,11 +4062,12 @@ def _spawn(fn, nprocs, *args):
     return tmp
 
 
-def dp_readings(ref, got):
-    """Phase 30's gaps of `got` from the 1-rank step `ref`."""
+def dp_readings(ref, got, nets=("all", "seg_net", "tnet", "box_net")):
+    """Phase 30's gaps of `got` from the 1-rank step `ref`; the gradient
+    cosines of `nets` (module prefixes; "all": every parameter)."""
     out = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
     ga, gb = ref["grads"], got["grads"]
-    for net in ("all", "seg_net", "tnet", "box_net"):
+    for net in nets:
         ks = [k for k in ga if net == "all" or k.startswith(net + ".")]
         out[net] = _cos(torch.cat([ga[k].ravel() for k in ks]),
                         torch.cat([gb[k].ravel() for k in ks]))
@@ -4058,7 +4091,7 @@ def dp_fails(r, limits):
     for k, lim in limits.items():
         if isinstance(lim, tuple):
             bad = not lim[0] <= r[k] <= lim[1]
-        elif k in ("loss", "stats"):
+        elif k in ("loss", "stats", "box_cot"):
             bad = r[k] > lim
         else:
             bad = r[k] < lim
@@ -4750,6 +4783,575 @@ def _points_parallel(args, dev, card: str):
           f"{card}", flush=True)
 
 
+# Phase 32: the rest of the points mesh, D x P ranks on the one card over
+# gloo (a card each over NCCL where the machine has as many): (a) the
+# BoxPC step at config 4's widths, (b) the phase-B step through phase
+# 25's model (v2 bf16 fused) at config 4's widths, each on (1, 2) and
+# (2, 2), (c) `BoxEstimationOnly` at config 1's widths on (2, 2), and a
+# v1 bf16 step at a large N on (1, 4). The runs of (a)-(c): the sound
+# step, then the controls (`_dp_faults`).
+PT_B = 32
+PT_RUNS = {"a": [(), ("local_pool",), ("local_bn",)],
+           "b": [(), ("local_pool",), ("local_bn",),
+                 ("box_cotangent_unsummed",)],
+           "c": [(), ("local_pool",), ("local_bn",)]}
+# The large N: v1 bf16, B=32, C=6, N points a frustum, (1, 4): a rank
+# holds N / 4 points a frustum.
+PT_LARGE_N = 16384
+# Each kind's nets (module prefixes; "all" the whole gradient).
+PT_NETS = {"a": ("all", "mlp", "head"),
+           "b": ("all", "seg_net", "tnet", "box_net"),
+           "c": ("all", "box_net.mlp", "box_net.head")}
+# Limits of the points mesh's step against the 1-rank step (set from the
+# card's readings, PERF.md section 6): the loss (relative), the gradient
+# cosines of the whole model and of each net, the BN buffers and the
+# whole gradient's norm. (a) and (c) are float32: their sound runs and
+# witnesses read cosines of 1 to 5 digits, losses within 3e-7, buffers
+# within 6e-6 (an NVIDIA H100 80GB HBM3 at 700 W), the controls cosines
+# of 0.18-0.97. (b) is bf16, and the weak losses, through an untrained
+# BoxPC whose gradient in the box routes through near-tied maxima, move
+# with every bf16 rounding of the predicted box: the card read (2, 2)
+# all 0.933, T-Net 0.727, box net 0.944, norm 0.950, the witness 0.972,
+# 0.752, 0.984, 0.964, below phase 31's (b) (the float32 phase-B step of
+# v2 on (2, 2) matches one rank to a loss gap of 4e-7 on the CPU,
+# tests/test_torch_points_transfer.py). Its seg net (0.9955 sound,
+# 0.85-0.88 the controls) and buffers (4e-3 sound, 0.16-0.38 the
+# controls) tell the controls apart; the rest bounds the chaos.
+PT_LIMITS = {
+    "a": {"loss": 1e-5, "all": 0.99999, "mlp": 0.99999, "head": 0.99999,
+          "stats": 1e-4, "norm": (1 - 1e-4, 1 + 1e-4)},
+    "b": {"loss": 0.02, "all": 0.85, "seg_net": 0.985, "tnet": 0.5,
+          "box_net": 0.85, "stats": 5e-2, "fused_bn_norm": (0.9, 1.1),
+          "norm": (0.9, 1.1)},
+    "c": {"loss": 1e-5, "all": 0.99999, "box_net.mlp": 0.99999,
+          "box_net.head": 0.99999, "stats": 1e-4,
+          "norm": (1 - 1e-4, 1 + 1e-4)}}
+# (b) on (1, 2), where the box stages see the 1-rank step's exact inputs:
+# the cotangent of the predicted box from the weak losses (`box_cot`,
+# relative L2 on the rank's rows; the card read 8.2e-8, the witness
+# 2.2e-8, the share left unsummed 0.66). On (2, 2) the bf16 box stages
+# differ from one rank's by more than a missing share moves it (0.34
+# sound, 0.19 the witness), so it is read there and not judged.
+PT_BOX_LIMITS = {"box_cot": 1e-3}
+# The weak losses' trust gate held open (its thresholds far beyond a
+# random BoxPC's deltas), so that the fit and refine terms reach the
+# detector through BoxPC on every frustum.
+PT_OPEN_GATE = dict(trust_center=10.0, trust_size=10.0, trust_heading=10.0,
+                    trust_prior_logsize=10.0)
+
+
+@contextlib.contextmanager
+def _keep_masks(masks):
+    """`layers.dropout_keep_mask` returns `masks` (whole-batch masks) in
+    turn; every one must be drawn."""
+    from transferable3d_torch.models import layers
+
+    queue = list(masks)
+    orig = layers.dropout_keep_mask
+    layers.dropout_keep_mask = lambda shape, rate, gen: queue.pop(0)
+    try:
+        yield
+    finally:
+        layers.dropout_keep_mask = orig
+    _check(not queue, "phase 32: a keep mask was not drawn")
+
+
+@contextlib.contextmanager
+def _box_cotangent(out):
+    """`out["cotangent"]`: the cotangent [rows, 7] of the predicted box
+    (center, size, heading) that the weak losses read, on the host, once
+    the step's backward has run."""
+    from transferable3d_torch.train import semisup
+
+    orig, parts = semisup.differentiable_box, {}
+
+    def hooked(*a, **kw):
+        box = orig(*a, **kw)
+        for i, t in enumerate(box):
+            t.register_hook(lambda g, i=i: parts.__setitem__(i, g))
+        return box
+    semisup.differentiable_box = hooked
+    try:
+        yield
+    finally:
+        semisup.differentiable_box = orig
+    out["cotangent"] = torch.cat([parts[0], parts[1], parts[2][:, None]],
+                                 dim=1).float().cpu()
+
+
+@contextlib.contextmanager
+def _weak_points_in(order):
+    """The weak losses read each weak frustum's points in `order` (a
+    no-op without one): they are a function of the frustum's point set,
+    so only their sums over points change order."""
+    from transferable3d_torch.train import semisup
+
+    if order is None:
+        yield
+        return
+    orig = semisup.weak_losses
+
+    def weak_losses(end_points, batch, *a, **kw):
+        idx = torch.as_tensor(order, device=batch["points"].device)
+        return orig(end_points, {**batch, "points": batch["points"][:, idx]},
+                    *a, **kw)
+    semisup.weak_losses = weak_losses
+    try:
+        yield
+    finally:
+        semisup.weak_losses = orig
+
+
+class PTStep:
+    """One step of phase 32 on `device` (default cuda:0) from a spec: kind
+    "a" (`make_boxpc_train_step` of a float32 BoxPC), "b"
+    (`make_semisup_train_step` of a detector with a frozen BoxPC) or "c"
+    (`make_train_step` of `BoxEstimationOnly`, float32), on this rank's
+    block of the current mesh (none: one rank, the whole batch), the
+    frustums in `order` and their points in `points_order`, with the
+    counters zeroed just before it. (b)'s batches lie on the 1/256 grid,
+    its foreground logit is raised by the margin and its box net's input
+    snapped (`_snap_to_grid`), its dropout masks drawn once and
+    injected; (a) draws from a CPU generator of one seed on every rank."""
+
+    def __init__(self, spec, device=None):
+        self.spec, self.device = spec, device or "cuda:0"
+
+    def models(self):
+        from transferable3d_torch.core import bins as bins_lib
+        from transferable3d_torch.models import registry
+
+        s, sun = self.spec, bins_lib.SUNRGBD
+        if s["kind"] == "a":
+            m = registry.get_model("boxpc_fit", sun, device=self.device)
+            m.load_state_dict(s["state_dict"])
+            return m, None
+        kw = ({} if s["name"] == "box_estimation_v1" else
+              dict(in_channels=s["batch"]["points"].shape[-1]))
+        m = registry.get_model(s["name"], sun, dtype=s["dtype"],
+                               device=self.device, **kw)
+        m.load_state_dict(s["state_dict"])
+        if s["kind"] == "c":
+            return m, None
+        with torch.no_grad():
+            m.seg_net.seg_out.bias[1] += s["margin"]
+        m.box_net.register_forward_pre_hook(_snap_to_grid)
+        bp = registry.get_model("boxpc_fit", sun, device=self.device)
+        bp.load_state_dict(s["boxpc"])
+        return m, bp
+
+    def step(self, model, boxpc):
+        """(step, state, the metric that is the step's loss)."""
+        from transferable3d_torch.core import bins as bins_lib
+        from transferable3d_torch.train import schedules, semisup, train_loop
+
+        s, sun = self.spec, bins_lib.SUNRGBD
+        b = len(s["batch"]["points"])
+        lr = schedules.exponential_staircase_lr(base_lr=1e-3, batch_size=b)
+        bn = schedules.bn_momentum_schedule(batch_size=b)
+        gen = torch.Generator().manual_seed(s["seed"])
+        state = train_loop.create_train_state(
+            model, train_loop.make_optimizer(lr), generator=gen)
+        if s["kind"] == "a":
+            return (semisup.make_boxpc_train_step(sun, bn,
+                                                  aniso_aug=s["aniso"]),
+                    state, "total_loss")
+        if s["kind"] == "c":
+            return train_loop.make_train_step(sun, lr, bn), state, \
+                "total_loss"
+        return (semisup.make_semisup_train_step(
+            sun, lr, bn, weights=semisup.WeakLossWeights(**PT_OPEN_GATE)),
+            semisup.SemisupState(state, boxpc), "combined_loss")
+
+    def batches(self, order=None, points_order=None):
+        s = self.spec
+        out = [s["batch"]] + ([s["weak"]] if s["kind"] == "b" else [])
+        keep = list(s.get("keep", ()))
+        if order is not None:
+            out = [{k: v[order] for k, v in b.items()} for b in out]
+            keep = [m[torch.from_numpy(order)] for m in keep]
+        if points_order is not None:
+            out = [{k: v[:, points_order] if k in ("points", "seg") else v
+                    for k, v in b.items()} for b in out]
+            keep = [m[:, torch.from_numpy(points_order)] for m in keep]
+        return out, keep
+
+    def __call__(self, faults=(), order=None, points_order=None,
+                 weak_points_order=None):
+        """`weak_points_order`: (b)'s weak losses read each weak frustum's
+        points in that order (the detector the batch's)."""
+        from transferable3d_torch.ops import _build
+        from transferable3d_torch.parallel import mesh as mesh_lib
+
+        model, boxpc = self.models()
+        step, state, key = self.step(model, boxpc)
+        batches, keep = self.batches(order, points_order)
+        box = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_dp_faults(faults, model))
+            if boxpc is not None:  # (b): its masks, the box's cotangent
+                stack.enter_context(_keep_masks(keep))
+                stack.enter_context(_box_cotangent(box))
+                stack.enter_context(_weak_points_in(weak_points_order))
+            rows = [mesh_lib.local_rows(b) for b in batches]
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            _, met = step(state, *rows)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        return {"loss": float(met[key]),
+                "grads": {k: g.cpu() for k, g in _grads(model).items()},
+                "stats": {k: v.detach().cpu().clone()
+                          for k, v in model.named_buffers()},
+                "launches": launches, "box_cot": box.get("cotangent")}
+
+    def times(self, steps=2):
+        """ms a step: the wall time of `steps` steps after one untimed."""
+        from transferable3d_torch.parallel import mesh as mesh_lib
+
+        model, boxpc = self.models()
+        step, state, _ = self.step(model, boxpc)
+        rows = [mesh_lib.local_rows(b) for b in self.batches()[0]]
+        if self.spec["kind"] == "b":  # the masks drawn on the card
+            state.detector.generator = torch.Generator(
+                device=self.device).manual_seed(self.spec["seed"])
+        step(state, *rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, *rows)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def pt_readings(ref, got, nets, rows=slice(None), order=None):
+    """`dp_readings` over `nets` (module prefixes; "all": every
+    parameter), and in (b) `box_cot`: the relative L2 gap of the predicted
+    box's cotangent on `got`'s rows (`rows` of `ref`'s; `order`: `got`
+    ran on the frustums in that order)."""
+    out = dp_readings(ref, got, nets)
+    if ref.get("box_cot") is not None:
+        want, have = ref["box_cot"][rows], got["box_cot"]
+        if order is not None:
+            have = have[torch.from_numpy(np.argsort(order))]
+        out["box_cot"] = float((have - want).norm() / want.norm())
+    return out
+
+
+def _pt_large(spec, device=None, whole=True):
+    """The large-N step on this rank: its result (without `whole`, only
+    its loss and launches), its step's ms (one untimed step first) and
+    its peak device memory above what the process held before it."""
+    step = DPStep(spec, device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = step()
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = step.times(steps=1)[0]
+    if not whole:
+        res = {"loss": res["loss"], "launches": res["launches"]}
+    return {**res, "ms": ms, "peak_gib": peak / 2 ** 30}
+
+
+def pt_rank(rank, init_method, tmp, stages):
+    """A rank process of phase 32. For each stage (world, points, jobs,
+    check_kernels) that it belongs to, in turn: its (world / points,
+    points) mesh over every card (ranks that share a card: gloo; a card
+    each: NCCL; None for a stage it is not in), then for each job the
+    runs of `PT_RUNS` and the step's
+    ms, or (job "large") the large-N step with its peak memory. The last
+    rank keeps every run; the others the sound run's loss, gradient and
+    launches and the controls' losses and launches. With
+    `check_kernels`, the last rank also holds K1, K5-K9 of one more
+    sound (b) step and K1, K2 of a predict step of (b)'s detector on its
+    weak block, at its own shapes, to their plain twins
+    (`_study_kernels`)."""
+    from transferable3d_torch.train.train_sup import f32_numerics
+
+    f32_numerics()  # as `main` sets them for the 1-rank steps
+    outs = [_pt_stage(rank, f"{init_method}-{i}", world, points, jobs, check)
+            if rank < world else None
+            for i, (world, points, jobs, check) in enumerate(stages)]
+    torch.save(outs, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _pt_stage(rank, init_method, world, points, jobs, check_kernels):
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.models import pointnet2
+    from transferable3d_torch.ops import fused_sa
+    from transferable3d_torch.parallel import mesh as mesh_lib
+    from transferable3d_torch.train import train_loop
+
+    mesh = mesh_lib.data_points_mesh(
+        world // points, points, rank=rank, world_size=world,
+        local_world_size=world, init_method=init_method)
+    cards = torch.cuda.device_count()
+    want = "gloo" if world > cards else "nccl"
+    _check(mesh.backend == want, f"{world} ranks on {cards} card(s) "
+           f"formed {mesh.backend}, not {want}")
+    last = rank == world - 1
+    out, t0 = {"seconds": {}}, time.perf_counter()
+    try:
+        with mesh_lib.use(mesh):
+            for tag, spec in jobs.items():
+                out["seconds"][tag] = time.perf_counter() - t0
+                if tag == "large":
+                    out[tag] = _pt_large(spec, mesh.device, last)
+                    continue
+                one = PTStep(spec, mesh.device)
+                runs = []
+                for faults in PT_RUNS[tag]:
+                    r = one(faults)
+                    if not last:
+                        r = {"launches": r["launches"], "loss": r["loss"],
+                             **({} if faults else {"grads": r["grads"]})}
+                    runs.append(r)
+                out[tag] = {"runs": runs, "ms": one.times()}
+            out["seconds"]["end"] = time.perf_counter() - t0
+            if check_kernels:
+                step_cap = _Capture(0, (
+                    (pointnet2, "farthest_point_sample"),
+                    (fused_sa, "sa_extract_cuda"),
+                    (fused_sa, "sa_fwd_step_cuda"),
+                    (fused_sa, "sa_bwd_step_cuda"),
+                    (fused_sa, "sa_bwd_step0_cuda")))
+                eval_cap = _Capture(0, (
+                    (pointnet2, "farthest_point_sample"),
+                    (fused_sa, "sa_infer")))
+                step = PTStep(jobs["b"], mesh.device)
+                step_cap(0, ())
+                try:
+                    launches = step()["launches"]
+                finally:
+                    step_cap(0, None)
+                det = step.models()[0]
+                predict = train_loop.make_predict_step(det, bins_lib.SUNRGBD)
+                eval_cap(0, ())
+                try:
+                    predict(mesh_lib.local_rows(jobs["b"]["weak"]))
+                finally:
+                    eval_cap(0, None)
+                if last:
+                    _study_kernels(step_cap, eval_cap, launches, phase=32)
+                out["seconds"]["kernels"] = time.perf_counter() - t0
+    finally:
+        mesh_lib.destroy(mesh)
+    return out
+
+
+def points_transfer(args, dev, card: str):
+    """Phase 32: the transfer loop's steps, `BoxEstimationOnly` and a
+    large N on a points mesh of the one card."""
+    with fused_sa_env(None):
+        _points_transfer(args, dev, card)
+
+
+def _pt_specs(args, dev):
+    """The specs of (a)-(c) and of the large-N step."""
+    from transferable3d_torch.core import bins as bins_lib
+    from transferable3d_torch.data import synthetic
+    from transferable3d_torch.data.provider import FrustumDataset
+    from transferable3d_torch.models import layers, registry
+    from transferable3d_torch.train import config as config_lib
+    from transferable3d_torch.train import train_semisup, train_sup
+
+    sun = bins_lib.SUNRGBD
+    cfg4 = transfer_cfg(args.seed, "")
+    _check((cfg4.num_point, cfg4.num_channels, cfg4.batch_size)
+           == (N, 6, PT_B), f"config 4's widths changed: {cfg4}")
+    strong_ds, weak_ds, _ = train_semisup.build_semisup_datasets(cfg4)
+    strong = strong_ds.get_batch(list(range(PT_B)))
+    weak = weak_ds.get_batch(list(range(PT_B)))
+    for k in ("calib_p", "has_calib", "box2d", "frustum_angle"):
+        weak.pop(k)  # as the device-drawn weak batches: the angular spans
+    gen = torch.Generator().manual_seed(args.seed + 30)
+    boxpc = registry.get_model("boxpc_fit", sun, device="cpu", generator=gen)
+    _perturb_bn(boxpc, gen)
+    specs = {"a": {"kind": "a", "state_dict": boxpc.state_dict(),
+                   "batch": strong, "seed": args.seed + 31,
+                   "aniso": cfg4.boxpc_aniso_aug}}
+    det = registry.get_model(
+        cfg4.model, sun, dtype=torch.bfloat16, device="cpu",
+        in_channels=cfg4.num_channels,
+        generator=torch.Generator().manual_seed(args.seed + 32))
+    _perturb_bn(det, gen)  # for the (1, 2) rank's predict step (K2)
+    b = {"kind": "b", "name": cfg4.model, "dtype": torch.bfloat16,
+         "state_dict": det.state_dict(), "boxpc": boxpc.state_dict(),
+         "batch": _grid_batch(strong), "weak": _grid_batch(weak),
+         "seed": args.seed + 33, "margin": 0.0}
+    b["keep"] = [layers.dropout_keep_mask((PT_B, N, 128), 0.5, gen)
+                 for _ in range(2)]
+    probe = PTStep(b, dev)
+    m = probe.models()[0].train()
+    gaps = []
+    for batch, keep in zip((b["batch"], b["weak"]), b["keep"]):
+        with _keep_masks([keep]), torch.no_grad():
+            logits = m(torch.as_tensor(batch["points"], device=dev),
+                       torch.as_tensor(batch["one_hot"], device=dev), 0.5,
+                       torch.Generator())["seg_logits"].float()
+        gaps.append(float((logits[..., 1] - logits[..., 0]).abs().max()))
+    b["margin"] = 1.0 + 2.0 * max(gaps)
+    specs["b"] = b
+    cfg1 = dataclasses.replace(config_lib.PRESETS["config1_boxonly_chair"],
+                               synthetic_train=PT_B, synthetic_val=PT_B,
+                               seed=args.seed)
+    _check((cfg1.num_point, cfg1.classes, cfg1.batch_size)
+           == (512, ("chair",), PT_B), f"config 1's widths changed: {cfg1}")
+    box_only = registry.get_model(
+        cfg1.model, sun, device="cpu",
+        generator=torch.Generator().manual_seed(args.seed + 34))
+    _perturb_bn(box_only, gen)
+    specs["c"] = {"kind": "c", "name": cfg1.model, "dtype": torch.float32,
+                  "state_dict": box_only.state_dict(),
+                  "batch": train_sup.build_datasets(cfg1)[0].get_batch(
+                      list(range(PT_B))), "seed": args.seed + 35}
+    recs = synthetic.make_dataset(PT_B, sun, seed=args.seed + 36,
+                                  extra_channels=3, n_object=12000,
+                                  n_clutter=6000)
+    large = FrustumDataset(recs, sun, npoints=PT_LARGE_N,
+                           rotate_to_center=True, seed=args.seed).get_batch(
+                               list(range(PT_B)))
+    specs["large"] = _dp_spec("frustum_pointnets_v1", large, args.seed + 37,
+                              dev)
+    return specs
+
+
+def _points_transfer(args, dev, card: str):
+    import shutil
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    specs = _pt_specs(args, dev)
+    print(f"phase 32 specs: {time.perf_counter() - t0:.1f} s", flush=True)
+    one, witness, ms1 = {}, {}, {}
+    halves_b = np.r_[PT_B // 2:PT_B, 0:PT_B // 2]
+    for tag in ("a", "b", "c"):
+        step = PTStep(specs[tag])
+        one[tag] = step()
+        if tag == "b":  # v2's FPS starts at point 0: swap the frustums
+            witness[tag] = step(order=halves_b)
+            n = specs[tag]["weak"]["points"].shape[1]
+            witness["b weak"] = step(weak_points_order=np.r_[n // 2:n,
+                                                             0:n // 2])
+        else:  # a function of each frustum's point set
+            n = specs[tag]["batch"]["points"].shape[1]
+            witness[tag] = step(points_order=np.r_[n // 2:n, 0:n // 2])
+        ms1[tag] = step.times()
+    one["large"] = _pt_large(specs["large"])
+    print(f"phase 32 one rank's steps: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    stages = [(4, 2, {k: specs[k] for k in ("a", "b", "c")}, False),
+              (2, 2, {k: specs[k] for k in ("a", "b")}, True),
+              (4, 4, {"large": specs["large"]}, False)]
+    t1 = time.perf_counter()
+    tmp = _spawn(pt_rank, 4, stages)
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(4)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    cards = torch.cuda.device_count()
+    meshes = {}
+    for i, (world, points, jobs, check) in enumerate(stages):
+        meshes[(world // points, points)] = [outs[r][i] for r in range(world)]
+        also = ", the kernels against their twins" if check else ""
+        print(f"phase 32 the ({world // points}, {points}) mesh "
+              f"({sorted(jobs)}{also}): the last rank's seconds after "
+              "forming it: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in outs[world - 1][i][
+                      "seconds"].items()), flush=True)
+    print(f"phase 32 the ranks' processes: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    def where(world):
+        return (f"{world} ranks on {min(world, cards)} card(s), "
+                + ("a card each (NCCL)" if world <= cards else "gloo"))
+
+    want_b = {"fps": 8, "sa_extract": 16, "sa_fwd_step": 16,
+              "sa_fwd_last": 16, "sa_bwd_step": 10, "sa_bwd_step0": 10}
+    _expect_launches(one["b"]["launches"], want_b)
+    for tag in ("a", "c"):
+        _expect_launches(one[tag]["launches"], {})
+    for tag, shape, what in (
+            ("a", (1, 2), f"(a) BoxPC f32, config 4's widths, B={PT_B}"),
+            ("a", (2, 2), f"(a) BoxPC f32, config 4's widths, B={PT_B}"),
+            ("b", (1, 2), f"(b) phase B, v2 bf16 fused, config 4's widths, "
+             f"B={PT_B} + {PT_B}"),
+            ("b", (2, 2), f"(b) phase B, v2 bf16 fused, config 4's widths, "
+             f"B={PT_B} + {PT_B}"),
+            ("c", (2, 2), f"(c) BoxEstimationOnly f32, config 1's widths, "
+             f"B={PT_B}")):
+        ranks = meshes[shape]
+        world, d = len(ranks), shape[0]
+        runs = ranks[-1][tag]["runs"]
+        for r in range(world):
+            _check(ranks[r][tag]["runs"][0]["loss"] == runs[0]["loss"],
+                   f"phase 32 {tag} {shape}: the ranks' losses differ")
+            same = all(torch.equal(g, runs[0]["grads"][k]) for k, g in
+                       ranks[r][tag]["runs"][0]["grads"].items())
+            _check(same, f"phase 32 {tag} {shape}: rank {r} holds another "
+                   "gradient than the last rank")
+            for run in ranks[r][tag]["runs"]:
+                _expect_launches(run["launches"],
+                                 want_b if tag == "b" else {})
+        rows = slice((d - 1) * PT_B // d, PT_B)  # the last rank's rows
+        nets = PT_NETS[tag]
+        read = {f"{shape} vs 1 rank": pt_readings(one[tag], runs[0], nets,
+                                                  rows),
+                "witness: 1 rank on the "
+                + ("batch's halves swapped" if tag == "b" else
+                   "point halves swapped"):
+                    pt_readings(one[tag], witness[tag], nets,
+                                order=halves_b if tag == "b" else None)}
+        controls = {f"control: {f[0]}": pt_readings(one[tag], run, nets,
+                                                    rows)
+                    for f, run in zip(PT_RUNS[tag][1:], runs[1:])}
+        unsummed = controls.pop("control: box_cotangent_unsummed", None)
+        dp_judge(f"{what} on a {shape} mesh, {where(world)}",
+                 PT_LIMITS[tag], read, controls, phase=32)
+        if unsummed is not None and shape == (1, 2):
+            dp_judge(f"{what} on a {shape} mesh, the predicted box's "
+                     "cotangent from the weak losses", PT_BOX_LIMITS,
+                     {f"{shape} vs 1 rank": read[f"{shape} vs 1 rank"],
+                      "witness: 1 rank, the weak losses on each weak "
+                      "frustum's point halves swapped": pt_readings(
+                          one[tag], witness["b weak"], nets)},
+                     {"control: box_cotangent_unsummed": unsummed},
+                     phase=32)
+        elif unsummed is not None:
+            print(f"phase 32 {what} on a {shape} mesh: box_cot (read, not "
+                  f"judged) {read[f'{shape} vs 1 rank']['box_cot']:.5g}, "
+                  f"without the points-group sum {unsummed['box_cot']:.5g}",
+                  flush=True)
+        print(f"times phase 32 {what} on a {shape} mesh, {where(world)}: "
+              f"{ranks[0][tag]['ms']:.1f} ms a step (rank 0); 1 rank "
+              f"{ms1[tag]:.1f} ms a step {card}", flush=True)
+
+    # The large N: the (1, 4) ranks' step against one rank's, at phase
+    # 31's v1 limits, and each rank's peak memory and step time.
+    ranks = meshes[(1, 4)]
+    big = ranks[-1]["large"]
+    _check(bool(one["large"]["mask"].all()) and bool(big["mask"].all()),
+           "phase 32 large N: a mask is not full (the margin did not pin it)")
+    for r in range(4):
+        _check(ranks[r]["large"]["loss"] == big["loss"],
+               "phase 32 large N: the ranks' losses differ")
+        _expect_launches(ranks[r]["large"]["launches"], {})
+    dp_judge(f"large N: v1 bf16, B={PT_B}, N={PT_LARGE_N}, C=6 on a (1, 4) "
+             f"mesh, {where(4)}", PP_V1_LIMITS,
+             {"(1, 4) vs 1 rank": dp_readings(one["large"], big)}, {},
+             phase=32)
+    print(f"times phase 32 large N (v1 bf16, B={PT_B}, N={PT_LARGE_N}, "
+          f"C=6): 1 rank {one['large']['ms']:.1f} ms a step, peak "
+          f"{one['large']['peak_gib']:.3f} GiB; (1, 4) mesh, {where(4)}, "
+          f"{PT_LARGE_N // 4} points a frustum a rank: " + "; ".join(
+              f"rank {r} {ranks[r]['large']['ms']:.1f} ms, peak "
+              f"{ranks[r]['large']['peak_gib']:.3f} GiB" for r in range(4))
+          + f" {card}", flush=True)
+    print(f"phase 32 points transfer: {time.perf_counter() - t0:.1f} s "
+          f"{card}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4757,6 +5359,8 @@ def main() -> None:
                     help="phases 1, 2 and 30 only (no kernels line)")
     ap.add_argument("--points_parallel_only", action="store_true",
                     help="phases 1, 2 and 31 only (no kernels line)")
+    ap.add_argument("--points_transfer_only", action="store_true",
+                    help="phases 1, 2 and 32 only (no kernels line)")
     ap.add_argument("--world", type=int, default=DP_WORLD,
                     help="phase 30's ranks (on a machine with that many "
                     "cards: one a card, over NCCL)")
@@ -4802,6 +5406,9 @@ def main() -> None:
     if args.points_parallel_only:
         points_parallel(args, dev, card)
         return
+    if args.points_transfer_only:
+        points_transfer(args, dev, card)
+        return
     keep = {}
     with torch.no_grad():
         kernels = serve(args, dev, card, keep)
@@ -4815,6 +5422,7 @@ def main() -> None:
     tools(args, dev, card, keep)
     data_parallel(args, dev, card)
     points_parallel(args, dev, card)
+    points_transfer(args, dev, card)
 
     print(f"times whole run: {time.perf_counter() - t_start:.1f} s {card}",
           flush=True)

@@ -1,5 +1,6 @@
-"""Rank processes for tests/test_torch_parallel.py and
-tests/test_torch_points_parallel.py.
+"""Rank processes for tests/test_torch_parallel.py,
+tests/test_torch_points_parallel.py and
+tests/test_torch_points_transfer.py.
 
 Imports torch and the port only: the ranks are spawned processes, and
 they import no JAX. `Ranks(fn, world, *args, points=P)` spawns `world`
@@ -18,8 +19,11 @@ BN statistics per rank (`mesh.batch_stats_sum` the identity),
 fused chain's BN gradients once before the gradient all-reduce adds
 them again. On a points mesh: `local_pool` pools over the rank's points
 alone (`mesh.points_max` the local max), `local_masking` masks the
-rank's points alone (no gather in `point_cloud_masking`), and
-`box_grads_everywhere` sums the box stages' gradients over every rank.
+rank's points alone (no gather in `point_cloud_masking`),
+`box_grads_everywhere` sums the box stages' gradients over every rank,
+and `box_cotangent_unsummed` leaves BoxPC's cotangent of the box it
+reads on the rank's points unsummed over the points group
+(`mesh.from_replicated` the identity).
 """
 
 from __future__ import annotations
@@ -95,7 +99,9 @@ def controls(names, model=None):
     """The named faults (see the module docstring) for the block."""
     saved = (mesh_lib.batch_stats_sum, mesh_lib.global_count,
              mesh_lib.all_reduce_grads, mesh_lib.points_max,
-             model_util.point_cloud_masking)
+             model_util.point_cloud_masking, mesh_lib.from_replicated)
+    if "box_cotangent_unsummed" in names:
+        mesh_lib.from_replicated = lambda x: x
     if "local_pool" in names:
         mesh_lib.points_max = lambda x, dim: x.amax(dim=dim)
     if "local_masking" in names:
@@ -132,7 +138,7 @@ def controls(names, model=None):
     finally:
         (mesh_lib.batch_stats_sum, mesh_lib.global_count,
          mesh_lib.all_reduce_grads, mesh_lib.points_max,
-         model_util.point_cloud_masking) = saved
+         model_util.point_cloud_masking, mesh_lib.from_replicated) = saved
 
 
 @contextlib.contextmanager
@@ -180,10 +186,11 @@ def _model(spec):
     """The spec's model from its state_dict; with `margin`, the
     foreground logit's bias raised by it (every point masked, past any
     rounding) and the box net's input snapped (`snap_to_grid`)."""
-    model = registry.get_model(
-        spec["name"], CFG, dtype=spec["dtype"], device="cpu",
+    detector = {} if spec["name"] == "box_estimation_v1" else dict(
         in_channels=spec["batch"]["points"].shape[-1],
         num_object_point=spec["nobj"])
+    model = registry.get_model(spec["name"], CFG, dtype=spec["dtype"],
+                               device="cpu", **detector)
     model.load_state_dict(spec["state_dict"])
     if spec.get("margin"):
         with torch.no_grad():
@@ -231,15 +238,16 @@ def permuted_draws(order):
 
 def train_step(spec, faults=(), order=None, points_order=None):
     """One `make_train_step` of `spec` (model name, dtype, state_dict,
-    the global numpy batch, the global keep mask, nobj) on this rank's
-    block of the current mesh (none: one rank, the whole batch), the
-    frustums in `order` and their points in `points_order`, with the
-    named faults."""
+    the global numpy batch, the global keep mask or None for a model
+    without dropout, nobj) on this rank's block of the current mesh
+    (none: one rank, the whole batch), the frustums in `order` and their
+    points in `points_order`, with the named faults."""
     if spec.get("fused"):
         os.environ.pop("T3D_FUSED_SA", None)
     model = _model(spec)
-    batch, keep = _permuted(spec["batch"], [spec["keep"]], order,
-                            points_order)
+    batch, keep = _permuted(
+        spec["batch"], [] if spec["keep"] is None else [spec["keep"]],
+        order, points_order)
     b = len(batch["points"])
     lr = tsched.exponential_staircase_lr(batch_size=b)
     bn = tsched.bn_momentum_schedule(batch_size=b)
@@ -268,15 +276,42 @@ def predict_step(spec, faults=()):
     return {k: v.numpy() for k, v in out.items()}
 
 
-def semisup_step(spec, faults=(), order=None):
-    """One `make_semisup_train_step` (v1 f32) of `spec` (the detector's
-    and BoxPC's state_dicts, the global strong and weak batches, their
-    keep masks, the weak-loss weights) on this rank's rows."""
+@contextlib.contextmanager
+def counted(calls):
+    """The calls of the fused chain's forward (K5's twin) and of its
+    first backward step (K9's) counted in `calls` for the block."""
+    from transferable3d_torch.ops import fused_sa
+
+    saved = {n: getattr(fused_sa, n) for n in ("sa_extract",
+                                               "sa_bwd_step0")}
+    for name, fn in saved.items():
+        def count(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(fused_sa, name, count)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(fused_sa, name, fn)
+
+
+def semisup_step(spec, faults=(), order=None, points_order=None):
+    """One `make_semisup_train_step` of `spec` (the detector's and
+    BoxPC's state_dicts, the global strong and weak batches, their keep
+    masks, the weak-loss weights) on this rank's block of the current
+    mesh, the frustums in `order` and their points in `points_order`,
+    with the named faults; the calls of the fused chain's twins are in
+    the outcome's `calls`."""
+    if spec.get("fused"):
+        os.environ.pop("T3D_FUSED_SA", None)
     det = _model(spec)
     bp = registry.get_model("boxpc_fit", CFG, device="cpu")
     bp.load_state_dict(spec["boxpc"])
-    strong, keep = _permuted(spec["batch"], spec["keep"][:1], order)
-    weak, keep_w = _permuted(spec["weak"], spec["keep"][1:], order)
+    strong, keep = _permuted(spec["batch"], spec["keep"][:1], order,
+                             points_order)
+    weak, keep_w = _permuted(spec["weak"], spec["keep"][1:], order,
+                             points_order)
     b = len(strong["points"])
     lr = tsched.exponential_staircase_lr(base_lr=1e-3, batch_size=b)
     bn = tsched.bn_momentum_schedule(batch_size=b)
@@ -290,24 +325,78 @@ def semisup_step(spec, faults=(), order=None):
     step = tsemi.make_semisup_train_step(
         CFG, lr, bn, weights=tsemi.WeakLossWeights(**spec["weights"]),
         diag_classes=CFG.num_classes)
-    with controls(faults, det), keep_masks(keep + keep_w):
+    calls, box = {}, {}
+    with controls(faults, det), keep_masks(keep + keep_w), counted(calls), \
+            box_cotangent(box):
         _, metrics = step(state, mesh_lib.local_rows(strong),
                           mesh_lib.local_rows(weak))
     hook.remove()
-    return _outcome(det, metrics, seen)
+    return {**_outcome(det, metrics, seen), "calls": calls,
+            "box_cotangent": box["cotangent"]}
 
 
-def boxpc_step(spec, faults=(), order=None):
+@contextlib.contextmanager
+def box_cotangent(out):
+    """`out["cotangent"]`: the cotangent [rows, 7] of the predicted box
+    (center, size, heading) that the weak losses read, as numpy, once
+    the step's backward has run."""
+    saved = tsemi.differentiable_box
+    parts = {}
+
+    def hooked(*a, **kw):
+        box = saved(*a, **kw)
+        for i, t in enumerate(box):
+            t.register_hook(lambda g, i=i: parts.__setitem__(i, g))
+        return box
+    tsemi.differentiable_box = hooked
+    try:
+        yield
+    finally:
+        tsemi.differentiable_box = saved
+    out["cotangent"] = torch.cat(
+        [parts[0], parts[1], parts[2][:, None]], dim=1).float().numpy()
+
+
+@contextlib.contextmanager
+def injected_draws(spec, b):
+    """With the spec's `draws` (the whole batch's perturbation and aug
+    draws and the head's two keep masks, as JAX drew them), the step
+    takes them in place of its generator's, asked for the whole batch's
+    `b` rows. A no-op without them."""
+    draws = spec.get("draws")
+    if draws is None:
+        yield
+        return
+    saved = tboxpc.perturbation_draws, tsemi.shape_aug_draws
+
+    def sample(gen, n):
+        assert n == b, (n, b)
+        return draws["sample"]
+
+    def aug(gen, n, log_range):
+        assert n == b, (n, b)
+        return draws["aug"]
+    tboxpc.perturbation_draws, tsemi.shape_aug_draws = sample, aug
+    try:
+        with keep_masks(draws["keep"]):
+            yield
+    finally:
+        tboxpc.perturbation_draws, tsemi.shape_aug_draws = saved
+
+
+def boxpc_step(spec, faults=(), order=None, points_order=None):
     """One phase-A `make_boxpc_train_step` of `spec` (BoxPC's
     state_dict, the global strong batch, the state generator's seed, the
-    aug's log range) on this rank's rows of the current mesh. The step
-    draws the whole batch's perturbation, aug and dropout masks from the
-    state's generator, seeded alike on every rank, and keeps the rank's
-    rows; with `order`, the frustums and every draw are permuted alike
-    (`permuted_draws`)."""
+    aug's log range, optionally JAX's `draws`) on this rank's block of
+    the current mesh. The step draws the whole batch's perturbation, aug
+    and dropout masks from the state's generator, seeded alike on every
+    rank, and keeps the rank's rows (or takes the injected draws,
+    `injected_draws`); with `order`, the frustums and every draw are
+    permuted alike (`permuted_draws`), with `points_order` each
+    frustum's points."""
     model = registry.get_model("boxpc_fit", CFG, device="cpu")
     model.load_state_dict(spec["state_dict"])
-    batch = _permuted(spec["batch"], [], order)[0]
+    batch = _permuted(spec["batch"], [], order, points_order)[0]
     b = len(batch["points"])
     state = tsemi.create_boxpc_state(
         model, tloop.make_optimizer(tsched.exponential_staircase_lr(
@@ -315,9 +404,33 @@ def boxpc_step(spec, faults=(), order=None):
     step = tsemi.make_boxpc_train_step(
         CFG, tsched.bn_momentum_schedule(batch_size=b),
         aniso_aug=spec["aniso"])
-    with controls(faults), permuted_draws(order):
+    with controls(faults), permuted_draws(order), injected_draws(spec, b):
         _, metrics = step(state, mesh_lib.local_rows(batch))
     return _outcome(model, metrics, [])
+
+
+def boxpc_draws(mesh, spec):
+    """The draws that one BoxPC step of `spec` hands to
+    `perturbed_from_draws` and `shape_aug_from_draws` on this rank, and
+    the aug's output points (the rank's block)."""
+    seen = {}
+    saved = tboxpc.perturbed_from_draws, tsemi.shape_aug_from_draws
+
+    def perturbed(gt, *draws, **kw):
+        seen["sample"] = [d.clone() for d in draws]
+        return saved[0](gt, *draws, **kw)
+
+    def aug(points, gt, s_log, u_on, **kw):
+        out = saved[1](points, gt, s_log, u_on, **kw)
+        seen.update(aug=[s_log.clone(), u_on.clone()],
+                    points=out[0].clone())
+        return out
+    tboxpc.perturbed_from_draws, tsemi.shape_aug_from_draws = perturbed, aug
+    try:
+        boxpc_step(spec)
+    finally:
+        tboxpc.perturbed_from_draws, tsemi.shape_aug_from_draws = saved
+    return seen
 
 
 def steps(mesh, fn, spec, runs):

@@ -21,6 +21,13 @@ exactly as JAX's `sample_perturbed_boxes` does from its own.
 The net is float32, as the JAX package builds it; module names follow
 the flax tree (`mlp.*`, `head.fc_i`, `head.bn_i`, `head.out`), so
 `utils/bridge.py` carries its variables across.
+
+On a (data, points) mesh (`parallel/mesh.py`) the net takes the rank's
+point slice and the whole box: the canonical features and the point MLP
+run on the slice (BN statistics over every rank), the pool across the
+points group, and the head (`points_replicated`) under
+`mesh.replicated_over_points`, whose gradients are summed over the data
+group.
 """
 
 from __future__ import annotations
@@ -82,19 +89,26 @@ class BoxPCFitNet(nn.Module):
         self.head = MLPHead(256 + 3, [256, 128], 1 + 3 + 1 + 3,
                             dropout_rate=0.3, **kw)
 
+    points_replicated = ("head",)
+
     def forward(self, points: torch.Tensor, box: BoxParams,
                 bn_momentum: float = 0.9,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """`generator` draws the head's dropout masks in train mode."""
-        feats = canonicalize_points(points[..., :3], box)
+        """`generator` draws the head's dropout masks in train mode. On a
+        points mesh the slice's features read the box through
+        `mesh.from_replicated`: their cotangent of it is the slice's
+        share, summed over the points group."""
+        feats = canonicalize_points(
+            points[..., :3], BoxParams(*map(mesh_lib.from_replicated, box)))
         x = self.mlp(feats.to(self.dtype), bn_momentum)
-        g = masked_max_pool(x)  # [B, 256]
-        # Box scale context (log-size is scale-equivariant).
-        g = torch.cat(
-            [g, torch.log(torch.clamp_min(box.size, 1e-3)).to(self.dtype)],
-            dim=-1)
-        out = self.head(g, bn_momentum, generator)
+        g = mesh_lib.to_replicated(masked_max_pool(x))  # [B, 256]
+        with mesh_lib.replicated_over_points():
+            # Box scale context (log-size is scale-equivariant).
+            g = torch.cat(
+                [g, torch.log(torch.clamp_min(box.size, 1e-3)).to(
+                    self.dtype)], dim=-1)
+            out = self.head(g, bn_momentum, generator)
         return {
             "fit_logit": out[:, 0],
             "delta_center": out[:, 1:4],

@@ -110,9 +110,16 @@ class BoxEstimationNetV1(nn.Module):
                             generator=generator)
 
     def forward(self, obj_points, one_hot, bn_momentum: float = 0.9):
-        x = self.mlp(obj_points.to(self.dtype), bn_momentum)  # [B, 512]
-        x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
-        return self.head(x, bn_momentum)
+        """On a points mesh outside the replicated scope (in
+        `BoxEstimationOnly`), the point MLP runs on the rank's slice and
+        pools across the points group, and the head runs under
+        `replicated_over_points`; inside it (in the v1 and v2 models) the
+        whole net sees the whole object points."""
+        x = mesh_lib.to_replicated(
+            self.mlp(obj_points.to(self.dtype), bn_momentum))  # [B, 512]
+        with mesh_lib.replicated_over_points():
+            x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
+            return self.head(x, bn_momentum)
 
 
 def _model_generator(generator):
@@ -172,7 +179,13 @@ class FrustumPointNetV1(nn.Module):
 
 class BoxEstimationOnly(nn.Module):
     """The box head alone on ground-truth-cropped points (no seg stage,
-    no T-Net): the smallest end-to-end model."""
+    no T-Net): the smallest end-to-end model. On a (data, points) mesh
+    the box net's point MLP runs on the rank's points around the whole
+    frustum's centroid and its head (`points_replicated`) under
+    `mesh.replicated_over_points`; `seg_logits` and `mask` are the
+    rank's."""
+
+    points_replicated = ("box_net.head",)
 
     def __init__(self, cfg: bins_lib.BinConfig, *, dtype=torch.float32,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -187,9 +200,8 @@ class BoxEstimationOnly(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """`generator` is unused (the model has no dropout); it is taken
         so that the train step calls every model alike."""
-        mesh_lib.require_points_axis_free("BoxEstimationOnly")
         xyz = points[..., :3]
-        centroid = xyz.mean(dim=1)                            # [B, 3]
+        centroid = mesh_lib.points_mean(xyz)                  # [B, 3]
         box_out = self.box_net(xyz - centroid[:, None, :], one_hot,
                                bn_momentum)
         end_points = model_util.parse_box_output(box_out, self.cfg)

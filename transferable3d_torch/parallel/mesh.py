@@ -44,6 +44,17 @@ slice, for per-frustum tensors that every rank of a points group holds
 whole. Under the sharded scope of a points mesh, `points_max` pools and
 `points_gather` gathers across the points group (the ranks that share a
 batch slice). On a 1-D mesh both scopes sum over every rank.
+
+A per-frustum tensor that every rank of a points group holds whole has
+two cotangent conventions: under the sharded scope each rank holds its
+share of the cotangent (the group's shares add up to it, as
+`points_max` and `points_gather` sum them), under the replicated scope
+each rank holds all of it. Where such a tensor crosses from one scope
+to the other, an identity converts its cotangent: `to_replicated` (a
+pool handed to a replicated head: the whole cotangent stays on points
+index 0, the shares elsewhere are zero) and `from_replicated` (a
+replicated box read by per-point work on the rank's slice: the shares
+are summed over the points group).
 """
 
 from __future__ import annotations
@@ -296,20 +307,6 @@ def points_size() -> int:
     """P under the sharded scope of a points mesh (the number of slices of
     each frustum's points), else 1."""
     return 1 if _points_group() is None else active().points
-
-
-def require_points_axis_free(what: str) -> None:
-    """Raise where the current mesh shards the points axis: `what` has no
-    points-mesh form."""
-    m = active()
-    if m is not None and m.points > 1:
-        raise NotImplementedError(f"{what} does not run on a (data, points) "
-                                  "mesh; use a 1-D data-parallel mesh")
-
-
-def world_size() -> int:
-    m = active()
-    return 1 if m is None else m.world_size
 
 
 def rank() -> int:
@@ -622,6 +619,83 @@ def points_max(x: torch.Tensor, dim: int) -> torch.Tensor:
     the local `amax` otherwise."""
     g = _points_group()
     return x.amax(dim=dim) if g is None else _PointsMax.apply(x, dim, g)
+
+
+def points_min(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x.amin(dim)` over a points axis: `points_max` of -x under the
+    sharded scope of a points mesh, the local `amin` otherwise."""
+    if _points_group() is None:
+        return x.amin(dim=dim)
+    return -points_max(-x, dim)
+
+
+def points_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-point tensor [B, N, ...] over axis 1, the whole
+    frustum's on every rank: `torch.mean` off a points mesh, else the
+    rank's sum added over the points group over N x P (differentiable,
+    `_AllReduceSum`: its cotangent is taken as the sharded scope's
+    shares)."""
+    g = _points_group()
+    if g is None:
+        return x.mean(dim=1)
+    return (_AllReduceSum.apply(x.sum(dim=1), g)
+            / (x.shape[1] * active().points))
+
+
+class _FromReplicated(torch.autograd.Function):
+    """y = x, where x is held whole by every rank of the points group
+    (a replicated-scope tensor) and y is read by per-point work on the
+    rank's slice: each rank's cotangent of y is its points' share, so
+    x's cotangent is their sum over the group (float32)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = dy.detach().float().contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g.to(dy.dtype), None
+
+
+class _ToReplicated(torch.autograd.Function):
+    """y = x, where x is held whole by every rank of the points group
+    and y is read by the replicated scope, whose cotangent every rank
+    holds whole: points index 0 passes it on as its share, the other
+    ranks pass zeros, so a sum over the group (`points_max`'s backward)
+    counts it once."""
+
+    @staticmethod
+    def forward(ctx, x, keep):
+        ctx.keep = keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (dy if ctx.keep else torch.zeros_like(dy)), None
+
+
+def from_replicated(x: torch.Tensor) -> torch.Tensor:
+    """A per-frustum tensor of the replicated scope (every rank of the
+    points group holds it and its cotangent whole) read under the sharded
+    scope by per-point work on the rank's slice (`_FromReplicated`: the
+    backward sums the group's shares); `x` itself off a points mesh or
+    inside the replicated scope."""
+    g = _points_group()
+    return x if g is None else _FromReplicated.apply(x, g)
+
+
+def to_replicated(x: torch.Tensor) -> torch.Tensor:
+    """A tensor that every rank of the points group holds whole (a pool
+    across the group) handed from the sharded scope to the replicated
+    one (`_ToReplicated`: the whole cotangent becomes points index 0's
+    share); `x` itself off a points mesh or inside the replicated
+    scope."""
+    if _points_group() is None:
+        return x
+    return _ToReplicated.apply(x, active().coords[1] == 0)
 
 
 class _PointsGather(torch.autograd.Function):

@@ -139,17 +139,21 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
     from `state.generator` in that order: the perturbation's numbers,
     then the seed of the dropout masks' own generator, then the aug's.
     Under a mesh (`train_loop.make_train_step`'s data parallelism) every
-    rank draws the whole batch's numbers and keeps its own rows.
+    rank draws the whole batch's numbers and keeps its own rows. On a
+    (data, points) mesh the batch's points are the rank's slice: the aug
+    scales each point by its frustum's draws, and the loss, its means
+    over the data group, runs under `mesh.replicated_over_points` with
+    BoxPC's head.
     """
 
     def step(state: train_loop.TrainState, batch: Dict
              ) -> Tuple[train_loop.TrainState, Dict]:
-        mesh_lib.require_points_axis_free("the BoxPC step")
         model = state.model
         device = next(model.parameters()).device
         batch = train_loop.batch_to_device(batch, device)
         gt = gt_boxes_from_batch(batch, cfg)
-        b = gt.center.shape[0] * mesh_lib.world_size()
+        # The whole batch's rows: D times the rank's on a (D, P) mesh.
+        b = mesh_lib.whole_shape(gt.center.shape, per_point=False)[0]
         sample = mesh_lib.local_rows(
             boxpc_lib.perturbation_draws(state.generator, b))
         dropout_gen = fork_generator(state.generator)
@@ -165,13 +169,17 @@ def make_boxpc_train_step(cfg: bins_lib.BinConfig, bn_schedule: Callable,
         state.optimizer.zero_grad()
         out = model(points, perturbed, bn_momentum=bn_momentum,
                     generator=dropout_gen)
-        losses = boxpc_lib.boxpc_loss(out, targets)
+        with mesh_lib.replicated_over_points():
+            losses = boxpc_lib.boxpc_loss(out, targets)
         losses["total_loss"].backward()
-        mesh_lib.all_reduce_grads(state.optimizer.params)
+        mesh_lib.all_reduce_grads(
+            state.optimizer.params,
+            replicated=train_loop.points_replicated_params(model))
         state.optimizer.step()
         state.step += 1
-        return state, mesh_lib.reduce_metrics(
-            {k: v.detach() for k, v in losses.items()})
+        with mesh_lib.replicated_over_points():
+            return state, mesh_lib.reduce_metrics(
+                {k: v.detach() for k, v in losses.items()})
 
     return step
 
@@ -239,18 +247,18 @@ def angular_span_residual(corners: torch.Tensor, points: torch.Tensor
     """Per-example 2D-reprojection surrogate in frustum coordinates.
 
     corners [B, 8, 3] of the predicted box; points [B, N, C] the frustum
-    cloud. Matches the (x/z, y/z) angular bounds; returns the mean
-    absolute span error [B].
+    cloud (on a points mesh, under the sharded scope, the rank's slice:
+    its bounds are taken across the points group). Matches the (x/z,
+    y/z) angular bounds; returns the mean absolute span error [B].
     """
-    def spans(xyz):
+    def spans(xyz, amin, amax):
         z = torch.clamp_min(xyz[..., 2], 0.5)  # frustums look down +Z
         az = xyz[..., 0] / z
         el = xyz[..., 1] / z
-        return (az.amin(dim=1), az.amax(dim=1), el.amin(dim=1),
-                el.amax(dim=1))
+        return (amin(az, 1), amax(az, 1), amin(el, 1), amax(el, 1))
 
-    ca = spans(corners)
-    pa = spans(points[..., :3])
+    ca = spans(corners, torch.amin, torch.amax)
+    pa = spans(points[..., :3], mesh_lib.points_min, mesh_lib.points_max)
     return sum((c - p).abs() for c, p in zip(ca, pa)) / 4.0
 
 
@@ -346,86 +354,94 @@ def weak_losses(end_points: Dict, batch: Dict[str, torch.Tensor],
 
     `diag_classes > 0` adds per-class `[diag_classes]` vectors (mean over
     each class's batch members) of the gate pass rate, the gated
-    fit/refine losses and every gate-component magnitude."""
+    fit/refine losses and every gate-component magnitude.
+
+    On a (data, points) mesh `batch["points"]` is the rank's slice and
+    the detector's outputs are every rank's whole: BoxPC reads the slice
+    with the whole box (its features' cotangent of the box summed over
+    the points group), the angular spans are the whole frustum's, and
+    the losses, per frustum, run under `mesh.replicated_over_points`."""
     box = differentiable_box(end_points, cfg,
                              class_idx=batch.get("class_idx"))
     out = freeze(boxpc_model)(batch["points"], box)
-
-    mean_sizes = torch.as_tensor(cfg.mean_size_array(),
-                                 device=box.size.device)
-    prior = mean_sizes[batch["class_idx"]]  # [B, 3]
-    gate = boxpc_trust_gate(out, box, weights, prior=prior)
-
-    # (a) maximize BoxPC's fit probability of the predicted box.
-    logit = out["fit_logit"]
-    fit_ex = gate * F.softplus(-logit)  # -log sigmoid, [B]
-    fit_loss = mesh_lib.batch_mean(fit_ex)
-
-    # (b) the BoxPC-refined box as a pseudo-label; the size term is
-    # prior-normalized linear huber (bounded gradient as the box shrinks).
-    with torch.no_grad():
-        refined = boxpc_lib.apply_deltas(box, out)
-    refine_ex = gate * (
-        _huber_ex(box.center - refined.center)
-        + _huber_ex(box.heading - refined.heading)
-        + _huber_ex((box.size - refined.size) / prior))
-    refine_loss = mesh_lib.batch_mean(refine_ex)
-
-    # (c) 2D reprojection consistency: calib-exact corner projection for
-    # examples that carry a camera matrix (has_calib == 1), the
-    # angular-span surrogate otherwise, and everywhere when the batch has
-    # no `calib_p` (device-drawn batches).
     corners = geometry.box_corners(box.center, box.size, box.heading)
     span_res = angular_span_residual(corners, batch["points"])
-    if "calib_p" in batch:
-        calib_res = calib_reprojection_residual(
-            corners, batch["frustum_angle"], batch["calib_p"],
-            batch["box2d"])
-        err = torch.where(batch["has_calib"] > 0, calib_res, span_res)
-    else:
-        err = span_res
-    reproj_loss = mesh_lib.batch_mean(_huber(err))
+    # The losses are per frustum: every rank of a points group holds
+    # them whole, and their means run over the data group.
+    with mesh_lib.replicated_over_points():
+        mean_sizes = torch.as_tensor(cfg.mean_size_array(),
+                                     device=box.size.device)
+        prior = mean_sizes[batch["class_idx"]]  # [B, 3]
+        gate = boxpc_trust_gate(out, box, weights, prior=prior)
 
-    # (d) the per-class mean-size prior (normalized).
-    size_prior_loss = mesh_lib.batch_mean(
-        _huber((box.size - prior) / prior))
+        # (a) maximize BoxPC's fit probability of the predicted box.
+        logit = out["fit_logit"]
+        fit_ex = gate * F.softplus(-logit)  # -log sigmoid, [B]
+        fit_loss = mesh_lib.batch_mean(fit_ex)
 
-    # (e) size-class CE from the known 2D class label.
-    logp = torch.log_softmax(end_points["size_scores"], dim=-1)
-    size_cls_loss = -mesh_lib.batch_mean(
-        torch.gather(logp, 1, batch["class_idx"][:, None])[:, 0])
+        # (b) the BoxPC-refined box as a pseudo-label; the size term is
+        # prior-normalized linear huber (bounded gradient as the box shrinks).
+        with torch.no_grad():
+            refined = boxpc_lib.apply_deltas(box, out)
+        refine_ex = gate * (
+            _huber_ex(box.center - refined.center)
+            + _huber_ex(box.heading - refined.heading)
+            + _huber_ex((box.size - refined.size) / prior))
+        refine_loss = mesh_lib.batch_mean(refine_ex)
 
-    total = (weights.fit * fit_loss + weights.refine * refine_loss
-             + weights.reprojection * reproj_loss
-             + weights.size_prior * size_prior_loss
-             + weights.size_cls * size_cls_loss)
-    losses = {
-        "weak_total_loss": total,
-        "weak_size_cls_loss": size_cls_loss,
-        "weak_fit_loss": fit_loss,
-        "weak_refine_loss": refine_loss,
-        "weak_reproj_loss": reproj_loss,
-        "weak_size_prior_loss": size_prior_loss,
-        "weak_fit_prob": mesh_lib.batch_mean(torch.sigmoid(logit)),
-        "weak_trust_frac": mesh_lib.batch_mean(gate),
-    }
-    if diag_classes:
-        oh = F.one_hot(batch["class_idx"], diag_classes).to(torch.float32)
-        # each class's count over the whole batch; diag_count is the
-        # rank's, and the metrics' all-reduce adds the ranks' counts.
-        cnt = torch.clamp_min(mesh_lib.global_count(oh.sum(dim=0)), 1.0)
+        # (c) 2D reprojection consistency: calib-exact corner projection for
+        # examples that carry a camera matrix (has_calib == 1), the
+        # angular-span surrogate otherwise, and everywhere when the batch has
+        # no `calib_p` (device-drawn batches).
+        if "calib_p" in batch:
+            calib_res = calib_reprojection_residual(
+                corners, batch["frustum_angle"], batch["calib_p"],
+                batch["box2d"])
+            err = torch.where(batch["has_calib"] > 0, calib_res, span_res)
+        else:
+            err = span_res
+        reproj_loss = mesh_lib.batch_mean(_huber(err))
 
-        def per_class(x):
-            return torch.einsum("b,bc->c", x, oh) / cnt
+        # (d) the per-class mean-size prior (normalized).
+        size_prior_loss = mesh_lib.batch_mean(
+            _huber((box.size - prior) / prior))
 
-        comp = trust_gate_components(out, box, prior=prior)
-        losses.update(
-            diag_count=oh.sum(dim=0),
-            diag_trust_frac=per_class(gate),
-            diag_fit_loss=per_class(fit_ex),
-            diag_refine_loss=per_class(refine_ex),
-            **{f"diag_{k}": per_class(v) for k, v in comp.items()})
-    return losses
+        # (e) size-class CE from the known 2D class label.
+        logp = torch.log_softmax(end_points["size_scores"], dim=-1)
+        size_cls_loss = -mesh_lib.batch_mean(
+            torch.gather(logp, 1, batch["class_idx"][:, None])[:, 0])
+
+        total = (weights.fit * fit_loss + weights.refine * refine_loss
+                 + weights.reprojection * reproj_loss
+                 + weights.size_prior * size_prior_loss
+                 + weights.size_cls * size_cls_loss)
+        losses = {
+            "weak_total_loss": total,
+            "weak_size_cls_loss": size_cls_loss,
+            "weak_fit_loss": fit_loss,
+            "weak_refine_loss": refine_loss,
+            "weak_reproj_loss": reproj_loss,
+            "weak_size_prior_loss": size_prior_loss,
+            "weak_fit_prob": mesh_lib.batch_mean(torch.sigmoid(logit)),
+            "weak_trust_frac": mesh_lib.batch_mean(gate),
+        }
+        if diag_classes:
+            oh = F.one_hot(batch["class_idx"], diag_classes).to(torch.float32)
+            # each class's count over the whole batch; diag_count is the
+            # rank's, and the metrics' all-reduce adds the ranks' counts.
+            cnt = torch.clamp_min(mesh_lib.global_count(oh.sum(dim=0)), 1.0)
+
+            def per_class(x):
+                return torch.einsum("b,bc->c", x, oh) / cnt
+
+            comp = trust_gate_components(out, box, prior=prior)
+            losses.update(
+                diag_count=oh.sum(dim=0),
+                diag_trust_frac=per_class(gate),
+                diag_fit_loss=per_class(fit_ex),
+                diag_refine_loss=per_class(refine_ex),
+                **{f"diag_{k}": per_class(v) for k, v in comp.items()})
+        return losses
 
 
 # ---------------------------------------------------------------------------
@@ -457,13 +473,14 @@ def make_semisup_train_step(cfg: bins_lib.BinConfig,
     the weak boxes are noise). Returns (state, metrics): the losses,
     `combined_loss`, `lr` and, with `step_cfg.compute_iou_metrics`, the
     strong pass's IoU metrics, as detached tensors. Under a mesh, both
-    batches are this rank's rows of the global batches, as in
-    `train_loop.make_train_step`.
+    batches are this rank's block of the global batches (its rows and,
+    on a points mesh, its point slices), as in
+    `train_loop.make_train_step`; each metric is reduced over its own
+    scope and `combined_loss` is taken from the reduced terms.
     """
 
     def step(state: SemisupState, strong: Dict, weak: Dict
              ) -> Tuple[SemisupState, Dict]:
-        mesh_lib.require_points_axis_free("the semi-supervised step")
         det = state.detector
         model = det.model
         device = next(model.parameters()).device
@@ -489,17 +506,20 @@ def make_semisup_train_step(cfg: bins_lib.BinConfig,
                 0.0, 1.0))
         total = sup["total_loss"] + w_eff * wk["weak_total_loss"]
         total.backward()
-        mesh_lib.all_reduce_grads(det.optimizer.params)
+        mesh_lib.all_reduce_grads(
+            det.optimizer.params,
+            replicated=train_loop.points_replicated_params(model))
         det.optimizer.step()
 
         metrics = {k: v.detach() for k, v in {**sup, **wk}.items()}
-        metrics["combined_loss"] = total.detach()
         if step_cfg.compute_iou_metrics:
             with torch.no_grad():
                 metrics.update(model_util.compute_metrics(
                     {k: v.detach() for k, v in ep_s.items()}, labels, cfg,
                     class_idx=strong.get("class_idx")))
-        metrics = mesh_lib.reduce_metrics(metrics)
+        metrics = train_loop.reduce_step_metrics(metrics, step_cfg)
+        metrics["combined_loss"] = (metrics["total_loss"]
+                                    + w_eff * metrics["weak_total_loss"])
         metrics["lr"] = lr_schedule(det.step)
         det.step += 1
         return state, metrics

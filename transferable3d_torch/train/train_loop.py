@@ -29,7 +29,7 @@ what it computes on one rank on the whole batch. On a (data, points)
 mesh the batch is the rank's block (rows and point slice): the seg
 net's gradients are summed over every rank, those of the model's
 `points_replicated` stages over the data group (`all_reduce_grads`),
-and each metric over its own scope (`_reduce_metrics`).
+and each metric over its own scope (`reduce_step_metrics`).
 """
 
 from __future__ import annotations
@@ -206,7 +206,7 @@ def _losses(cfg, step_cfg: StepConfig, batch, end_points,
 _POINT_METRICS = ("seg_loss", "seg_accuracy")
 
 
-def _reduce_metrics(metrics: Dict, step_cfg: StepConfig) -> Dict:
+def reduce_step_metrics(metrics: Dict, step_cfg: StepConfig) -> Dict:
     """`mesh.reduce_metrics`; on a points mesh each metric over its own
     scope and the total again from the reduced terms."""
     if mesh_lib.points_size() == 1:
@@ -222,11 +222,12 @@ def _reduce_metrics(metrics: Dict, step_cfg: StepConfig) -> Dict:
     return {k: out[k] for k in metrics}
 
 
-def _points_replicated(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+def points_replicated_params(model: torch.nn.Module
+                             ) -> List[torch.nn.Parameter]:
     """The parameters of the model's stages that run replicated over the
-    points group (`points_replicated`, module names)."""
+    points group (`points_replicated`, dotted module names)."""
     return [p for name in getattr(model, "points_replicated", ())
-            for p in getattr(model, name).parameters()]
+            for p in model.get_submodule(name).parameters()]
 
 
 def make_train_step(cfg: bins_lib.BinConfig,
@@ -257,8 +258,8 @@ def make_train_step(cfg: bins_lib.BinConfig,
                            generator=state.generator)
         losses = _losses(cfg, step_cfg, batch, end_points, True)
         losses["total_loss"].backward()
-        mesh_lib.all_reduce_grads(state.optimizer.params,
-                                  replicated=_points_replicated(model))
+        mesh_lib.all_reduce_grads(
+            state.optimizer.params, replicated=points_replicated_params(model))
         state.optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         if step_cfg.compute_iou_metrics:
@@ -267,7 +268,7 @@ def make_train_step(cfg: bins_lib.BinConfig,
                     {k: v.detach() for k, v in end_points.items()},
                     labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
-        metrics = _reduce_metrics(metrics, step_cfg)
+        metrics = reduce_step_metrics(metrics, step_cfg)
         metrics["lr"] = lr_schedule(state.step)
         metrics["bn_momentum"] = bn_momentum
         state.step += 1
@@ -294,7 +295,7 @@ def make_eval_step(cfg: bins_lib.BinConfig,
                 metrics.update(model_util.compute_metrics(
                     end_points, labels_from_batch(batch), cfg,
                     class_idx=batch.get("class_idx")))
-        return _reduce_metrics(metrics, step_cfg)
+        return reduce_step_metrics(metrics, step_cfg)
 
     return step
 
