@@ -1,0 +1,11 @@
+"""draw_ms (`.train`): the device timeline's milliseconds of the span
+`t3d.draw`, the step's on-device draw of its batch
+(`data/device_dataset.sample_batch`, run by the caller before the step),
+a step of the traced stretch (its sum over the count of
+`t3d.train_step`), busy and idle together."""
+
+from t3d_bench.metrics import _spans
+
+
+def read(rd):
+    return _spans.ms_a_step(rd, "t3d.draw")

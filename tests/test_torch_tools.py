@@ -3,7 +3,7 @@ and `models/pointnet2.sample_and_group` exactly (points on a grid, so
 the distances and their ties are exact in both), `utils/viz` (the HTML
 viewer and the PNG renders byte for byte, the JAX tests' script-breakout
 and subsampling cases), and `utils/profiling`
-(`StepTimer`, `trace`, `device_ms` on the CPU)."""
+(`trace`, `device_ms` on the CPU; its spans in test_torch_spans.py)."""
 
 import glob
 import json
@@ -175,14 +175,6 @@ def test_draw_scene_bev_writes_a_png(tmp_path, with_boxes):
 
 
 # -- profiling ---------------------------------------------------------------
-
-def test_step_timer():
-    t = profiling.StepTimer(warmup=2)
-    assert t.rate() == 0.0
-    for _ in range(10):
-        t.tick()
-    assert t.rate() > 0
-
 
 def test_trace_noop_and_real(tmp_path):
     with profiling.trace(None) as prof:

@@ -39,6 +39,7 @@ from transferable3d_torch import resolve_device
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.core import geometry
 from transferable3d_torch.data.provider import FrustumRecord
+from transferable3d_torch.utils import profiling
 
 
 class DeviceFrustums(NamedTuple):
@@ -165,9 +166,10 @@ def sample_batch(data: DeviceFrustums, generator: torch.Generator,
                  cfg: bins_lib.BinConfig, random_flip: bool = True,
                  random_shift: bool = True) -> Dict[str, torch.Tensor]:
     """Draw a train batch on the device. idxs [B] record indices."""
-    u, flip, z = draw(generator, idxs.shape[0], npoints)
-    return batch_from_draws(data, idxs, u, flip, z, cfg, random_flip,
-                            random_shift)
+    with profiling.span("t3d.draw"):
+        u, flip, z = draw(generator, idxs.shape[0], npoints)
+        return batch_from_draws(data, idxs, u, flip, z, cfg, random_flip,
+                                random_shift)
 
 
 class DeviceEpochIterator:

@@ -31,6 +31,7 @@ from transferable3d_torch.models.pointnet2 import (FeaturePropagation,
                                                   SetAbstraction,
                                                   SetAbstractionMSG)
 from transferable3d_torch.parallel import mesh as mesh_lib
+from transferable3d_torch.utils import profiling
 
 
 class InstanceSegNetV2(nn.Module):
@@ -134,16 +135,20 @@ class FrustumPointNetV2(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """`generator` draws the seg head's dropout mask in train mode
         (required there, as flax requires a dropout rng)."""
-        seg_logits = self.seg_net(points, one_hot, bn_momentum, generator)
-        masked = model_util.point_cloud_masking(points, seg_logits,
-                                                self.num_object_point)
-        # The box stages see only the whole frustum's object points.
-        with mesh_lib.replicated_over_points():
-            delta_c1 = self.tnet(masked.object_points, one_hot, bn_momentum)
-            stage1_center = delta_c1 + masked.mask_centroid
-            obj_recentered = masked.object_points - delta_c1[:, None, :]
-            box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
-        end_points = model_util.parse_box_output(box_out, self.cfg)
+        with profiling.span("t3d.seg_net"):
+            seg_logits = self.seg_net(points, one_hot, bn_momentum,
+                                      generator)
+        with profiling.span("t3d.box_stages"):
+            masked = model_util.point_cloud_masking(points, seg_logits,
+                                                    self.num_object_point)
+            # The box stages see only the whole frustum's object points.
+            with mesh_lib.replicated_over_points():
+                delta_c1 = self.tnet(masked.object_points, one_hot,
+                                     bn_momentum)
+                stage1_center = delta_c1 + masked.mask_centroid
+                obj_recentered = masked.object_points - delta_c1[:, None, :]
+                box_out = self.box_net(obj_recentered, one_hot, bn_momentum)
+            end_points = model_util.parse_box_output(box_out, self.cfg)
         end_points["seg_logits"] = seg_logits
         end_points["mask"] = masked.mask
         end_points["mask_centroid"] = masked.mask_centroid

@@ -71,6 +71,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from transferable3d_torch.utils import profiling
+
 # How long a rank waits for the others at the rendezvous and at a
 # collective before it raises.
 TIMEOUT = datetime.timedelta(seconds=600)
@@ -751,15 +753,18 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter],
     m = _grouped()
     if m is None:
         return
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    rep = {id(p) for p in replicated} if m.points > 1 else set()
-    for group, ps in ((m.group, [p for p in params if id(p) not in rep]),
-                      (m.data_group, [p for p in params if id(p) in rep])):
-        if ps and group is not None:
-            _flat_apply([p.grad for p in ps], m.device,
-                        lambda flat: dist.all_reduce(flat, group=group))
+    with profiling.span("t3d.all_reduce"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        rep = {id(p) for p in replicated} if m.points > 1 else set()
+        for group, ps in ((m.group, [p for p in params
+                                     if id(p) not in rep]),
+                          (m.data_group, [p for p in params
+                                          if id(p) in rep])):
+            if ps and group is not None:
+                _flat_apply([p.grad for p in ps], m.device,
+                            lambda flat: dist.all_reduce(flat, group=group))
 
 
 def reduce_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:

@@ -30,6 +30,11 @@ mesh the batch is the rank's block (rows and point slice): the seg
 net's gradients are summed over every rank, those of the model's
 `points_replicated` stages over the data group (`all_reduce_grads`),
 and each metric over its own scope (`reduce_step_metrics`).
+
+The steps mark their phases with `utils/profiling.span` (`t3d.train_step`
+with `t3d.forward`, `t3d.loss`, `t3d.backward`, `t3d.optimizer`,
+`t3d.step_metrics`; `t3d.predict` with `t3d.input`, `t3d.decode`),
+which record only while a profiler records.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from transferable3d_torch.core import bins as bins_lib
 from transferable3d_torch.models import model_util
 from transferable3d_torch.parallel import mesh as mesh_lib
+from transferable3d_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,28 +253,38 @@ def make_train_step(cfg: bins_lib.BinConfig,
     """
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        with profiling.span("t3d.train_step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         model = state.model
         device = next(model.parameters()).device
         batch = batch_to_device(batch, device)
         bn_momentum = bn_schedule(state.step)
         model.train()
-        state.optimizer.zero_grad()
-        end_points = model(batch["points"], batch["one_hot"],
-                           bn_momentum=bn_momentum,
-                           generator=state.generator)
-        losses = _losses(cfg, step_cfg, batch, end_points, True)
-        losses["total_loss"].backward()
+        with profiling.span("t3d.optimizer"):
+            state.optimizer.zero_grad()
+        with profiling.span("t3d.forward"):
+            end_points = model(batch["points"], batch["one_hot"],
+                               bn_momentum=bn_momentum,
+                               generator=state.generator)
+        with profiling.span("t3d.loss"):
+            losses = _losses(cfg, step_cfg, batch, end_points, True)
+        with profiling.span("t3d.backward"):
+            losses["total_loss"].backward()
         mesh_lib.all_reduce_grads(
             state.optimizer.params, replicated=points_replicated_params(model))
-        state.optimizer.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        if step_cfg.compute_iou_metrics:
-            with torch.no_grad():
-                metrics.update(model_util.compute_metrics(
-                    {k: v.detach() for k, v in end_points.items()},
-                    labels_from_batch(batch), cfg,
-                    class_idx=batch.get("class_idx")))
-        metrics = reduce_step_metrics(metrics, step_cfg)
+        with profiling.span("t3d.optimizer"):
+            state.optimizer.step()
+        with profiling.span("t3d.step_metrics"):
+            metrics = {k: v.detach() for k, v in losses.items()}
+            if step_cfg.compute_iou_metrics:
+                with torch.no_grad():
+                    metrics.update(model_util.compute_metrics(
+                        {k: v.detach() for k, v in end_points.items()},
+                        labels_from_batch(batch), cfg,
+                        class_idx=batch.get("class_idx")))
+            metrics = reduce_step_metrics(metrics, step_cfg)
         metrics["lr"] = lr_schedule(state.step)
         metrics["bn_momentum"] = bn_momentum
         state.step += 1
@@ -316,32 +332,38 @@ def make_predict_step(model: torch.nn.Module, cfg: bins_lib.BinConfig
     device = next(model.parameters()).device
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        with profiling.span("t3d.predict"):
+            return _step(batch)
+
+    def _step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.inference_mode():
-            points = torch.as_tensor(batch["points"], dtype=torch.float32,
-                                     device=device)
-            one_hot = torch.as_tensor(batch["one_hot"], dtype=torch.float32,
-                                      device=device)
-            class_idx = batch.get("class_idx")
-            if class_idx is not None:
-                class_idx = torch.as_tensor(class_idx, device=device)
+            with profiling.span("t3d.input"):
+                points = torch.as_tensor(batch["points"],
+                                         dtype=torch.float32, device=device)
+                one_hot = torch.as_tensor(batch["one_hot"],
+                                          dtype=torch.float32, device=device)
+                class_idx = batch.get("class_idx")
+                if class_idx is not None:
+                    class_idx = torch.as_tensor(class_idx, device=device)
             end_points = model(points, one_hot)
-            center, size, heading, hcls, scls = model_util.decode_box(
-                end_points, cfg, class_idx=class_idx)
-            seg_prob = mesh_lib.points_gather(
-                torch.softmax(end_points["seg_logits"], dim=-1)[..., 1])
-            mask = end_points["mask"]
-            heading_prob = torch.softmax(
-                end_points["heading_scores"], dim=-1).amax(dim=-1)
-            size_prob = torch.softmax(
-                end_points["size_scores"], dim=-1).amax(dim=-1)
-            seg_conf = ((seg_prob * mask).sum(dim=1)
-                        / torch.clamp_min(mask.sum(dim=1), 1.0))
-            return {
-                "center": center, "size": size, "heading": heading,
-                "heading_class": hcls, "size_class": scls,
-                "seg_conf": seg_conf, "heading_prob": heading_prob,
-                "size_prob": size_prob, "mask_count": mask.sum(dim=1),
-            }
+            with profiling.span("t3d.decode"):
+                center, size, heading, hcls, scls = model_util.decode_box(
+                    end_points, cfg, class_idx=class_idx)
+                seg_prob = mesh_lib.points_gather(
+                    torch.softmax(end_points["seg_logits"], dim=-1)[..., 1])
+                mask = end_points["mask"]
+                heading_prob = torch.softmax(
+                    end_points["heading_scores"], dim=-1).amax(dim=-1)
+                size_prob = torch.softmax(
+                    end_points["size_scores"], dim=-1).amax(dim=-1)
+                seg_conf = ((seg_prob * mask).sum(dim=1)
+                            / torch.clamp_min(mask.sum(dim=1), 1.0))
+                return {
+                    "center": center, "size": size, "heading": heading,
+                    "heading_class": hcls, "size_class": scls,
+                    "seg_conf": seg_conf, "heading_prob": heading_prob,
+                    "size_prob": size_prob, "mask_count": mask.sum(dim=1),
+                }
 
     return step
